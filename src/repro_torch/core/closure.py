@@ -1,0 +1,324 @@
+"""Transitive-closure fixpoint engines (Algorithm 1 of the paper), in torch.
+
+The port of ``repro.core.closure``.  The paper's loop is
+``while T changes: T <- T ∪ (T x T)``; only the |P| products of actual
+productions ``A -> B C`` can contribute, so each engine evaluates
+
+    new[A] |= OR_{(A->BC) in P}  T[B] ·∧∨ T[C]
+
+as ONE batched product over the production axis (gather by B/C, OR by A).
+
+Engines
+-------
+  dense_closure      0/1 matmul + ``> 0`` saturation (exact).
+  frontier_closure   multiplies only the delta of the previous iteration.
+  bitpacked_closure  int32 AND/OR words through ``kernels.ops.bitmm`` (the
+                     hand-written CUDA kernel on the card, its plain torch
+                     version for CPU tensors).
+  masked_*           source-restricted variants of the three: a row mask M
+                     seeded with the requested sources, at most R active rows
+                     per iteration, ``(T, M, overflowed)`` returned.
+
+Every engine is a Python loop that reads one "grew" flag on the host per
+iteration (the reference runs ``lax.while_loop`` on the device).  Inputs
+are never modified: each call copies its state once and updates the copy
+in place.  The invariants of the reference hold unchanged — masked-row
+exactness at the fixpoint and monotone warm restarts (see
+``repro.core.closure``); the tests hold every engine bit-equal to its
+reference counterpart.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+from .matrices import ProductionTables, pack_bits, unpack_bits
+
+
+def _mat_dtype(device: torch.device) -> torch.dtype:
+    # bf16 on the card (the tensor cores' type), fp32 on the CPU, where
+    # bf16 matmul is slow — as the reference uses bf16 on the TPU only.
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def _bool_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched Boolean matmul by saturation: ``(A @ B) > 0``.
+
+    Exact for 0/1 operands in bf16, and under cuBLAS's reduced-precision
+    bf16 reduction too: the products are fp32-accumulated, and every term
+    is non-negative, so a sum that is at least 1 can never round to 0."""
+    dt = _mat_dtype(lhs.device)
+    return torch.matmul(lhs.to(dt), rhs.to(dt)) > 0
+
+
+def _scatter_or(prod: torch.Tensor, tables: ProductionTables) -> torch.Tensor:
+    """OR per-production results into their LHS slot, (P, …) -> (N, …).
+
+    One function for the reference's ``_scatter_or_bool`` and
+    ``_scatter_or_packed``: ``|`` is the OR of bool planes and of packed
+    int32 words alike (the reference's bool ``max`` would drop packed
+    words with bit 31 set once they are signed)."""
+    out = prod.new_zeros((tables.n_nonterms, *prod.shape[1:]))
+    for p, a in enumerate(tables.a_idx):
+        out[a] |= prod[p]
+    return out
+
+
+def _iter_limit(T: torch.Tensor, max_iters: int | None) -> int:
+    # Thm. 3 bounds iterations by |V|^2 |N| = n^2 N.  The loops stop on
+    # "no growth", so this limit is only a divergence guard; a tighter guess
+    # can truncate before the fixpoint on deep-derivation inputs.
+    n = T.shape[-1]
+    return max_iters if max_iters is not None else n * n * T.shape[0]
+
+
+def _masked_limit(T: torch.Tensor, max_iters: int | None) -> int:
+    # the mask can grow for at most n extra iterations beyond the T bound
+    return _iter_limit(T, max_iters) + T.shape[-1]
+
+
+def dense_closure(
+    T: torch.Tensor, tables: ProductionTables, max_iters: int | None = None
+) -> torch.Tensor:
+    """T^cf by the matmul path.  ``T`` is (N, n, n) bool."""
+    if tables.n_prods == 0:
+        return T
+    b_idx, c_idx = tables.index_tensors(T.device)
+    limit = _iter_limit(T, max_iters)
+    T = T.clone()
+    it = 0
+    while it < limit:
+        new = _scatter_or(_bool_matmul(T[b_idx], T[c_idx]), tables)
+        grew = bool((new & ~T).any())
+        T |= new
+        it += 1
+        if not grew:
+            break
+    return T
+
+
+def frontier_closure(
+    T: torch.Tensor, tables: ProductionTables, max_iters: int | None = None
+) -> torch.Tensor:
+    """Incremental closure: entering an iteration, ``D`` holds exactly the
+    entries added in the previous one, so only ``T·D ∪ D·T`` can produce
+    anything new.  Same fixpoint as :func:`dense_closure`."""
+    if tables.n_prods == 0:
+        return T
+    b_idx, c_idx = tables.index_tensors(T.device)
+    limit = _iter_limit(T, max_iters)
+    T = T.clone()
+    D = T.clone()
+    it = 0
+    while it < limit and bool(D.any()):
+        left = _bool_matmul(T[b_idx], D[c_idx])
+        right = _bool_matmul(D[b_idx], T[c_idx])
+        new = _scatter_or(left | right, tables)
+        D = new & ~T
+        T |= new
+        it += 1
+    return T
+
+
+def bitpacked_closure(
+    T: torch.Tensor, tables: ProductionTables, max_iters: int | None = None
+) -> torch.Tensor:
+    """T^cf on int32-packed columns; the state never leaves the packed layout.
+
+    For a production A -> B C the lhs T[B] needs its contraction axis (its
+    columns) packed and the rhs T[C] its output axis (also its columns)
+    packed — both are exactly the stored layout."""
+    if tables.n_prods == 0:
+        return T
+    b_idx, c_idx = tables.index_tensors(T.device)
+    n = T.shape[-1]
+    limit = _iter_limit(T, max_iters)
+    Tp = pack_bits(T)  # (N, n, w) int32
+    it = 0
+    while it < limit:
+        prod = kops.bitmm(Tp[b_idx], Tp[c_idx])  # (P, n, w)
+        Tp_next = Tp | _scatter_or(prod, tables)
+        grew = bool((Tp_next != Tp).any())
+        Tp = Tp_next
+        it += 1
+        if not grew:
+            break
+    return unpack_bits(Tp, n)
+
+
+# ---------------------------------------------------------------------- #
+# Source-restricted (masked) closure engines.
+#
+# Row i of T^cf depends only on rows reachable from i, so these engines
+# keep a row mask M seeded with the requested sources, contract the first
+# R active rows per iteration, expand M with every column an active row
+# reaches, and stop with ``overflowed=True`` when M outgrows R — the caller
+# re-enters with a larger capacity from the returned (T, M); the fixpoint is
+# monotone, so no work is lost.  R (``row_capacity``) keeps the reference's
+# fixed shapes: the active block is always R rows, padded with zero rows.
+# ---------------------------------------------------------------------- #
+
+
+def _active_rows(M: torch.Tensor, R: int) -> tuple[torch.Tensor, int]:
+    """First R set rows of the mask: ``(idx (R,), count)``.
+
+    Lanes ``count..R`` of ``idx`` are padding (row 0), as in the reference;
+    callers zero those lanes' operands and scatter back only the valid
+    prefix ``idx[:count]``, whose rows are distinct."""
+    idx = torch.nonzero(M).flatten()[:R]
+    count = idx.numel()
+    if count < R:
+        idx = torch.cat([idx, idx.new_zeros(R - count)])
+    return idx, count
+
+
+def _masked_init(T, tables, row_capacity, max_iters):
+    n = T.shape[-1]
+    b_idx, c_idx = tables.index_tensors(T.device)
+    return min(row_capacity, n), b_idx, c_idx, _masked_limit(T, max_iters)
+
+
+def _all_rows(T: torch.Tensor):
+    """(T, M, overflowed) of a grammar without binary productions:
+    T^cf == T0, so every row is already exact."""
+    n = T.shape[-1]
+    return T, torch.ones((n,), dtype=torch.bool, device=T.device), False
+
+
+def masked_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Source-restricted closure on the dense matmul path.
+
+    ``src_mask`` is an (n,) bool row seed.  Returns ``(T, M, overflowed)``;
+    rows of ``T`` where ``M`` is set equal the all-pairs closure rows iff
+    ``overflowed`` is False (otherwise re-enter with the returned state and
+    a larger ``row_capacity``).  ``iter_hook(it, active_rows, changed,
+    overflow)`` is called after every iteration when given.
+    """
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    T = T.clone()
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        rows = T[:, idx, :]  # (N, R, n) active rows
+        rows[:, cnt:] = False
+        # compact the contraction axis too: only rows in M can contribute
+        lhs = rows[b_idx][:, :, idx]  # (P, R, R)
+        lhs[:, :, cnt:] = False
+        prod = _bool_matmul(lhs, rows[c_idx])  # (P, R, n)
+        new_r = _scatter_or(prod, tables)[:, :cnt]
+        vidx = idx[:cnt]
+        old = T[:, vidx, :]
+        changed = new_r & ~old
+        T[:, vidx, :] = old | new_r
+        M_next = M | rows.any(dim=1).any(dim=0)  # columns reached -> rows
+        overflow = int(M_next.sum()) > R
+        grew = bool(changed.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed.sum()), overflow)
+        M = M_next
+        it += 1
+    return T, M, overflow
+
+
+def masked_frontier_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Masked closure with the frontier (delta) trick: only products through
+    entries discovered in the previous iteration are formed, and rows newly
+    admitted to the mask enter the delta with their base edges."""
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    T = T.clone()
+    M = src_mask.clone()
+    D = T & M[None, :, None]
+    overflow, it = False, 0
+    while bool(D.any()) and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        rows_t = T[:, idx, :]
+        rows_t[:, cnt:] = False
+        rows_d = D[:, idx, :]
+        rows_d[:, cnt:] = False
+        lhs_t = rows_t[b_idx][:, :, idx]
+        lhs_t[:, :, cnt:] = False
+        lhs_d = rows_d[b_idx][:, :, idx]
+        lhs_d[:, :, cnt:] = False
+        prod = _bool_matmul(lhs_t, rows_d[c_idx]) | _bool_matmul(
+            lhs_d, rows_t[c_idx]
+        )
+        new_r = _scatter_or(prod, tables)[:, :cnt]
+        vidx = idx[:cnt]
+        old = T[:, vidx, :]
+        changed = new_r & ~old
+        M_next = M | rows_t.any(dim=1).any(dim=0)
+        newly = M_next & ~M  # rows activated now: their base edges are fresh
+        D = T & newly[None, :, None]
+        D[:, vidx, :] |= changed
+        T[:, vidx, :] = old | new_r
+        overflow = int(M_next.sum()) > R
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed.sum()), overflow)
+        M = M_next
+        it += 1
+    return T, M, overflow
+
+
+def masked_bitpacked_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Source-restricted closure on packed words via the rectangular bitmm
+    path: lhs is the (P, R, w) gather of active rows, rhs the full (P, n, w)
+    packed state (contraction against base-only rows is sound — their
+    entries are a subset of the true closure — and speeds convergence)."""
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    n = T.shape[-1]
+    Tp = pack_bits(T)  # (N, n, w)
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        rows = Tp[:, idx, :]  # (N, R, w)
+        rows[:, cnt:] = 0
+        prod = kops.bitmm(rows[b_idx], Tp[c_idx])  # (P, R, w)
+        new_r = _scatter_or(prod, tables)[:, :cnt]
+        vidx = idx[:cnt]
+        old = Tp[:, vidx, :]
+        upd = old | new_r
+        changed_w = upd != old  # changed words (packed growth unit)
+        Tp[:, vidx, :] = upd
+        # packed columns reached from active rows: OR over the nonterminal
+        # axis, then any() over the unpacked rows
+        reach = rows[0].clone()
+        for a in range(1, rows.shape[0]):
+            reach |= rows[a]
+        M_next = M | unpack_bits(reach, n).any(dim=0)
+        overflow = int(M_next.sum()) > R
+        grew = bool(changed_w.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed_w.sum()), overflow)
+        M = M_next
+        it += 1
+    return unpack_bits(Tp, n), M, overflow

@@ -1,0 +1,152 @@
+"""Query planning: the closure cache of the port.
+
+A closure callable is determined by ``(grammar tables, engine, padded n,
+row capacity)`` — all static shape/constant information.  The reference
+caches an AOT ``lower(...).compile()`` executable per plan key; torch runs
+eagerly and has no such step, so this cache stores the masked-closure
+function with its statics bound.  What the cache keeps is the reference's
+observable contract: ``compile_misses`` counts first requests of a key,
+``compile_hits`` repeats, and provenance tallies who asked.
+
+Row capacities are bucketed (powers of two from 128 up to n) so warm
+restarts after an active-set overflow reuse at most O(log n) distinct
+plans per grammar instead of one per exact source count.
+
+Invariants
+----------
+* **PlanKey identity.**  A cached callable is a pure function of its
+  :class:`PlanKey` and of nothing else; it never depends on graph data, so
+  it survives every graph edit and may be shared across engines serving
+  different graphs of the same padded size.  The key keeps every field of
+  the reference's ``PlanKey``; this slice only builds relational,
+  non-repair, single-device keys (``repair=False``, ``ctx_capacity=0``,
+  ``semantics="relational"``, ``mesh=()``, ``tile=0``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from repro_torch.core import closure as _closure
+from repro_torch.core.matrices import ProductionTables
+from repro_torch.obs.trace import emit_iteration
+
+#: masked (source-restricted) closure per backend — the serving fast path
+MASKED_ENGINES = {
+    "dense": _closure.masked_closure,
+    "frontier": _closure.masked_frontier_closure,
+    "bitpacked": _closure.masked_bitpacked_closure,
+}
+
+
+def row_buckets(n: int) -> list[int]:
+    """Allowed row capacities for padded size n: 128, 256, ... , n."""
+    out: list[int] = []
+    r = 128
+    while r < n:
+        out.append(r)
+        r *= 2
+    out.append(n)
+    return out
+
+
+def bucket_for(n_rows: int, n: int) -> int:
+    """Smallest bucket holding ``n_rows`` active rows."""
+    for r in row_buckets(n):
+        if r >= n_rows:
+            return r
+    return n
+
+
+@dataclass(frozen=True)
+class PlanKey:
+    """Everything that determines a closure callable (the reference's
+    fields, see ``repro.engine.plan.PlanKey``).  ``instrumented`` selects
+    the observability build: the callable passes the
+    :func:`repro_torch.obs.trace.emit_iteration` trampoline as the
+    closure's ``iter_hook``.  It IS part of the identity, so the untraced
+    path never calls a hook."""
+
+    tables: ProductionTables
+    engine: str
+    n: int  # padded matrix size
+    row_capacity: int
+    repair: bool = False
+    ctx_capacity: int = 0
+    semantics: str = "relational"
+    mesh: tuple = ()
+    instrumented: bool = False
+    tile: int = 0
+
+
+@dataclass
+class PlanStats:
+    """Cache counters plus *provenance* tallies.
+
+    Provenance records **who asked** for each plan — ``"planned"``
+    (cost-based planner decision), ``"pinned"`` (caller named the
+    backend), or any caller-supplied tag — without touching PlanKey
+    identity: a planner-requested plan and a pinned one with the same key
+    share one cache entry.
+    """
+
+    compile_misses: int = 0
+    compile_hits: int = 0
+    #: provenance tag -> requests (hits + misses) under that tag
+    provenance: dict = field(default_factory=dict)
+
+    def note_provenance(self, tag: str | None) -> None:
+        if tag:
+            self.provenance[tag] = self.provenance.get(tag, 0) + 1
+
+    def as_dict(self) -> dict:
+        return {
+            "compile_misses": self.compile_misses,
+            "compile_hits": self.compile_hits,
+        }
+
+
+class CompiledClosureCache:
+    """Masked-closure callables keyed on PlanKey.
+
+    ``get(key)`` returns a callable ``(T, src_mask) -> (T, mask, overflow)``
+    with the grammar tables and row capacity bound.  The name and counters
+    are the reference's; in the port a "compile" is the binding of the
+    closure's statics.
+    """
+
+    def __init__(self) -> None:
+        self._exe: dict[PlanKey, object] = {}
+        self.stats = PlanStats()
+
+    def __len__(self) -> int:
+        return len(self._exe)
+
+    def get(self, key: PlanKey, provenance: str | None = None):
+        """Callable for ``key``; ``provenance`` tags the request origin
+        (``"planned"`` / ``"pinned"``) in :class:`PlanStats` —
+        observability only, never part of the key."""
+        self.stats.note_provenance(provenance)
+        exe = self._exe.get(key)
+        if exe is None:
+            self.stats.compile_misses += 1
+            exe = self._exe[key] = self._build(key)
+        else:
+            self.stats.compile_hits += 1
+        return exe
+
+    @staticmethod
+    def _build(key: PlanKey):
+        if key.semantics != "relational" or key.repair or key.mesh or key.tile:
+            raise ValueError(
+                f"the port serves relational single-device plans only: {key}"
+            )
+        fn = MASKED_ENGINES[key.engine]
+        hook = emit_iteration if key.instrumented else None
+
+        def exe(T, src_mask):
+            return fn(
+                T, key.tables, src_mask,
+                row_capacity=key.row_capacity, iter_hook=hook,
+            )
+
+        return exe

@@ -1,0 +1,56 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports JAX or the reference package ``repro``, and the
+port's library code prints nothing (the port's counterpart of
+tools/check_prints.py)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FILES = PORT_FILES + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_neither_jax_nor_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_library_code_does_not_print(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    calls = [
+        node.lineno for node in ast.walk(tree)
+        if isinstance(node, ast.Call)
+        and isinstance(node.func, ast.Name) and node.func.id == "print"
+    ]
+    assert not calls, f"{path.relative_to(ROOT)} calls print at lines {calls}"
+
+
+def test_the_port_has_the_slice_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    assert {
+        "core/grammar.py", "core/graph.py", "core/matrices.py",
+        "core/closure.py", "core/semantics.py", "baselines/hellings.py",
+        "kernels/ref.py", "kernels/bitmm.py", "kernels/ops.py",
+        "obs/trace.py", "obs/metrics.py", "obs/instruments.py",
+        "delta/txn.py", "engine/stats.py", "engine/config.py",
+        "engine/plan.py", "engine/planner.py", "engine/service.py",
+    } <= names
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitmm.cu").exists()
