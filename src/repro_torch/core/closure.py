@@ -18,6 +18,11 @@ Engines
   masked_*           source-restricted variants of the three: a row mask M
                      seeded with the requested sources, at most R active rows
                      per iteration, ``(T, M, overflowed)`` returned.
+  masked_*repair*    delta repair: masked variants that take a frozen-row
+                     mask (rows trusted exact, contracted against but never
+                     written); the packed one runs its step through
+                     ``kernels.ops.bitmm_or``.
+  reverse_reachable_mask  the ancestor sweep that sizes a repair.
 
 Every engine is a Python loop that reads one "grew" flag on the host per
 iteration (the reference runs ``lax.while_loop`` on the device).  Inputs
@@ -315,6 +320,148 @@ def masked_bitpacked_closure(
         for a in range(1, rows.shape[0]):
             reach |= rows[a]
         M_next = M | unpack_bits(reach, n).any(dim=0)
+        overflow = int(M_next.sum()) > R
+        grew = bool(changed_w.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed_w.sum()), overflow)
+        M = M_next
+        it += 1
+    return unpack_bits(Tp, n), M, overflow
+
+
+# ---------------------------------------------------------------------- #
+# Reverse-reachability sweep and repair closures (delta repair; the
+# reference's DELTA.md and ``repro.core.closure`` explain the contract).
+#
+# An edge edit at row u can only change closure rows that REACH u; the
+# sweep computes that ancestor set.  A repair warm-starts from a cached
+# state in which most rows are already exact ("frozen"): frozen rows are
+# contracted against as constants but never recomputed or written, and
+# mask expansion skips them, so the row capacity is sized by the edit's
+# blast radius.  At the fixpoint, rows under the returned M are exact and
+# frozen rows are bit-identical to their input.
+# ---------------------------------------------------------------------- #
+
+
+def reverse_reachable_mask(
+    adj: torch.Tensor, seeds: torch.Tensor, max_iters: int | None = None
+) -> torch.Tensor:
+    """Rows that can reach a seed row over ``adj`` (seeds included).
+
+    ``adj`` is the (n, n) bool label-blind adjacency, ``seeds`` an (n,)
+    bool mask.  Fixpoint of ``m <- m | adj @ m``: each step adds the direct
+    predecessors of the set, so it converges within the graph's diameter."""
+    n = adj.shape[-1]
+    limit = max_iters if max_iters is not None else n
+    dt = _mat_dtype(adj.device)
+    a = adj.to(dt)
+    m = seeds.clone()
+    grew, it = True, 0
+    while grew and it < limit:
+        hit = torch.matmul(a, m.to(dt)[:, None])[:, 0] > 0
+        m_next = m | hit
+        grew = bool((m_next & ~m).any())
+        m = m_next
+        it += 1
+    return m
+
+
+def masked_repair_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    frozen_mask: torch.Tensor,
+    row_capacity: int = 128,
+    ctx_capacity: int | None = None,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Dense-path repair fixpoint (the frontier backend's too).
+
+    ``src_mask`` seeds the rows to rebuild; rows under ``frozen_mask`` are
+    trusted exact and never recomputed, but join the compacted contraction
+    context (at most ``ctx_capacity`` rows, active plus frozen).  Returns
+    ``(T, M, overflowed)`` with ``M`` the rebuilt rows; overflow fires when
+    the active set outgrows ``row_capacity`` or the context outgrows
+    ``ctx_capacity``."""
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    n = T.shape[-1]
+    C = min(ctx_capacity if ctx_capacity is not None else n, n)
+    T = T.clone()
+    M = src_mask & ~frozen_mask
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        cidx, ccnt = _active_rows(M | frozen_mask, C)
+        rows = T[:, idx, :]  # (N, R, n) active rows
+        rows[:, cnt:] = False
+        ctx = T[:, cidx, :]  # (N, C, n) context: active and frozen rows
+        ctx[:, ccnt:] = False
+        lhs = rows[b_idx][:, :, cidx]  # (P, R, C)
+        lhs[:, :, ccnt:] = False
+        prod = _bool_matmul(lhs, ctx[c_idx])  # (P, R, n)
+        new_r = _scatter_or(prod, tables)[:, :cnt]
+        vidx = idx[:cnt]  # never frozen: M excludes frozen rows
+        old = T[:, vidx, :]
+        changed = new_r & ~old
+        T[:, vidx, :] = old | new_r
+        reach = rows.any(dim=1).any(dim=0)
+        M_next = M | (reach & ~frozen_mask)
+        overflow = int(M_next.sum()) > R or int((M_next | frozen_mask).sum()) > C
+        grew = bool(changed.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed.sum()), overflow)
+        M = M_next
+        it += 1
+    return T, M, overflow
+
+
+def masked_bitpacked_repair_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    frozen_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Packed-word analog of :func:`masked_repair_closure`: like
+    :func:`masked_bitpacked_closure` it contracts the active rows against
+    the full packed state, and mask expansion skips frozen rows.
+
+    The step is one fused ``kops.bitmm_or``: lhs the active rows of each
+    production's B, rhs the packed state of its C, acc the active rows of
+    its A — so every output plane is already ``rows[A] | (B x C)``.  The
+    OR over productions then writes back only the valid prefix of the
+    active rows, and only the planes of nonterminals that head a
+    production (a scatter-``max`` on int32 words would drop those with bit
+    31 set)."""
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    a_idx = torch.tensor(tables.a_idx, dtype=torch.int64, device=T.device)
+    heads = torch.tensor(
+        sorted(set(tables.a_idx)), dtype=torch.int64, device=T.device
+    )
+    n = T.shape[-1]
+    Tp = pack_bits(T)  # (N, n, w)
+    M = src_mask & ~frozen_mask
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        rows = Tp[:, idx, :]  # (N, R, w)
+        rows[:, cnt:] = 0
+        out = kops.bitmm_or(rows[b_idx], Tp[c_idx], rows[a_idx])  # (P, R, w)
+        upd = _scatter_or(out, tables)[heads, :cnt]  # (H, cnt, w)
+        vidx = idx[:cnt]  # never frozen: M excludes frozen rows
+        changed_w = upd != rows[heads, :cnt]
+        Tp[heads[:, None], vidx[None, :]] = upd
+        reach = rows[0].clone()
+        for a in range(1, rows.shape[0]):
+            reach |= rows[a]
+        M_next = M | (unpack_bits(reach, n).any(dim=0) & ~frozen_mask)
         overflow = int(M_next.sum()) > R
         grew = bool(changed_w.any()) or bool((M_next & ~M).any())
         if iter_hook is not None:

@@ -8,6 +8,7 @@ default ``engine="auto"`` routes every closure call through the cost-based
 :class:`Planner` (planner.py), and per-request statistics are the typed
 :class:`QueryStats` (stats.py).
 """
+from repro_torch.delta.repair import DeltaStats
 from repro_torch.delta.txn import Snapshot, StaleSnapshotError
 
 from .config import ENGINE_CHOICES, EngineConfig
@@ -23,6 +24,7 @@ from .stats import QueryStats
 
 __all__ = [
     "CompiledClosureCache",
+    "DeltaStats",
     "ENGINE_CHOICES",
     "EngineConfig",
     "PlanDecision",

@@ -18,9 +18,10 @@ Invariants
   :class:`PlanKey` and of nothing else; it never depends on graph data, so
   it survives every graph edit and may be shared across engines serving
   different graphs of the same padded size.  The key keeps every field of
-  the reference's ``PlanKey``; this slice only builds relational,
-  non-repair, single-device keys (``repair=False``, ``ctx_capacity=0``,
-  ``semantics="relational"``, ``mesh=()``, ``tile=0``).
+  the reference's ``PlanKey``; the port builds relational single-device
+  keys (``semantics="relational"``, ``mesh=()``, ``tile=0``), masked or
+  repair (``repair=True``, with ``ctx_capacity`` the contraction-context
+  bucket of the dense/frontier repair, 0 for the packed one).
 """
 from __future__ import annotations
 
@@ -36,6 +37,22 @@ MASKED_ENGINES = {
     "frontier": _closure.masked_frontier_closure,
     "bitpacked": _closure.masked_bitpacked_closure,
 }
+
+#: repair closure per backend — delta ingestion (frozen-row warm restart;
+#: the frontier backend shares the dense repair path)
+REPAIR_ENGINES = {
+    "dense": _closure.masked_repair_closure,
+    "frontier": _closure.masked_repair_closure,
+    "bitpacked": _closure.masked_bitpacked_repair_closure,
+}
+
+
+def repair_engine_name(engine: str) -> str:
+    """Backend name to key Boolean repair plans under.  The reference's
+    ``opt`` backend keys as ``bitpacked`` (repair is sized by an edit's
+    blast radius, so it always runs the single-device packed path); the
+    port's backends key as themselves."""
+    return "bitpacked" if engine == "opt" else engine
 
 
 def row_buckets(n: int) -> list[int]:
@@ -109,7 +126,8 @@ class CompiledClosureCache:
     """Masked-closure callables keyed on PlanKey.
 
     ``get(key)`` returns a callable ``(T, src_mask) -> (T, mask, overflow)``
-    with the grammar tables and row capacity bound.  The name and counters
+    — ``(T, src_mask, frozen_mask)`` for a repair key — with the grammar
+    tables and capacities bound.  The name and counters
     are the reference's; in the port a "compile" is the binding of the
     closure's statics.
     """
@@ -136,12 +154,22 @@ class CompiledClosureCache:
 
     @staticmethod
     def _build(key: PlanKey):
-        if key.semantics != "relational" or key.repair or key.mesh or key.tile:
+        if key.semantics != "relational" or key.mesh or key.tile:
             raise ValueError(
                 f"the port serves relational single-device plans only: {key}"
             )
-        fn = MASKED_ENGINES[key.engine]
         hook = emit_iteration if key.instrumented else None
+        if key.repair:
+            fn = REPAIR_ENGINES[key.engine]
+            kw = {"row_capacity": key.row_capacity, "iter_hook": hook}
+            if key.ctx_capacity:  # dense/frontier compact the contraction
+                kw["ctx_capacity"] = key.ctx_capacity
+
+            def exe_repair(T, src_mask, frozen_mask):
+                return fn(T, key.tables, src_mask, frozen_mask, **kw)
+
+            return exe_repair
+        fn = MASKED_ENGINES[key.engine]
 
         def exe(T, src_mask):
             return fn(

@@ -15,11 +15,16 @@ Cache states reported per request:
   ``warm``  the masked closure ran, seeded from previous state;
   ``miss``  first closure for this (graph, grammar).
 
-Graph edits — logged through ``Graph.insert_edges`` / ``delete_edges`` or
-made to ``graph.edges`` directly — drop every materialized state at the
-next batch (the reference repairs logged edits row by row; that comes
-with the port's delta slice).  Cached closure plans survive: they depend
-only on the grammar and padded size.
+Graph edits committed through ``Graph.insert_edges`` / ``delete_edges``
+(or ``QueryEngine.apply_delta``) advance the graph's version counter and
+are ingested as *row-level repair* of the materialized states
+(delta/repair.py) instead of dropping them; each ingested delta advances
+the engine epoch (delta/txn.py).  Out-of-band edits (mutating
+``graph.edges`` directly) are still caught by a per-batch edge-set
+comparison — even when they coincide with logged edits — and drop every
+materialized state, as does a log compacted past the engine's version.
+Cached closure plans survive both paths: they depend only on the grammar
+and padded size.
 """
 from __future__ import annotations
 
@@ -35,15 +40,22 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.matrices import (
     ProductionTables,
     init_matrix,
+    init_matrix_rows,
     padded_size,
     resolve_device,
+)
+from repro_torch.delta.repair import (
+    DeltaStats,
+    placement_of,
+    plan_repair,
+    repair_state,
 )
 from repro_torch.delta.txn import EpochClock, Snapshot
 from repro_torch.obs.instruments import EngineMetrics
 from repro_torch.obs.trace import NULL_TRACER, iteration_scope
 
 from .config import EngineConfig
-from .plan import CompiledClosureCache, PlanKey, bucket_for
+from .plan import CompiledClosureCache, PlanKey, bucket_for, repair_engine_name
 from .planner import PlanDecision, PlanFeatures, Planner
 from .stats import QueryStats
 
@@ -132,13 +144,16 @@ class QueryEngine:
         self._n_nodes = graph.n_nodes
         self._version = graph.version
         self.clock = EpochClock(version=graph.version)
-        # cache and state mutation is not atomic: query_batch holds this
-        # across its whole body
+        self.delta_stats = DeltaStats()  # cumulative over the engine's life
+        # cache and state mutation is not atomic, so query_batch/apply_delta
+        # hold this across their whole body.  An RLock: apply_delta settles
+        # pending edits through _check_graph while holding it.
         self._lock = threading.RLock()
         # Observability (repro_torch.obs): planner.decide / closure.execute
-        # spans, and per-iteration events through instrumented plan keys
-        # when the tracer wants them.  ``metrics`` is a MetricsRegistry (the
-        # process default when None) fed cache/closure counters.
+        # / delta.repair spans, and per-iteration events through
+        # instrumented plan keys when the tracer wants them.  ``metrics`` is
+        # a MetricsRegistry (the process default when None) fed
+        # cache/closure/delta counters.
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = EngineMetrics.on(metrics)
 
@@ -152,7 +167,7 @@ class QueryEngine:
         """Serve a batch: one closure call per grammar group.
 
         ``snapshot`` (from :meth:`snapshot`) pins the epoch the caller
-        expects to read; if the graph changed since, the batch raises
+        expects to read; if a delta was committed since, the batch raises
         ``StaleSnapshotError``.  Results also carry ``batch_total``
         (queries submitted together) and ``batch_groups`` (closure-call
         groups they were sliced into).
@@ -175,29 +190,117 @@ class QueryEngine:
                 out.stats["batch_groups"] = len(groups)  # type: ignore[union-attr]
             return results  # type: ignore[return-value]
 
+    # ------------------------------------------------------------------ #
+    # Delta ingestion (serving layer of the delta subsystem).
+    # ------------------------------------------------------------------ #
     def snapshot(self) -> Snapshot:
         """Pin the current epoch for cross-batch read consistency."""
         with self._lock:
             return self.clock.snapshot()
 
+    def apply_delta(
+        self,
+        insert: list[tuple[int, str, int]] = (),
+        delete: list[tuple[int, str, int]] = (),
+    ) -> DeltaStats:
+        """Commit edge edits and repair materialized closures in place.
+
+        Deletions are applied first, then insertions; both are folded into
+        one repair pass.  Returns this delta's repair stats (the engine
+        also accumulates them into every result's stats).
+        """
+        with self._lock:
+            self._check_graph()  # settle pending/out-of-band edits first
+            if delete:
+                self.graph.delete_edges(list(delete))
+            if insert:
+                self.graph.insert_edges(list(insert))
+            if self.graph.version == self._version:
+                return DeltaStats()  # edits were all no-ops
+            return self._ingest_delta()
+
+    def _ingest_delta(self, delta=None) -> DeltaStats:
+        """Fold the graph's edge log since the last-served version into
+        row-level repair of every cached grammar state."""
+        g = self.graph
+        if delta is None:
+            delta = g.delta_since(self._version)
+        stats = DeltaStats()
+        if delta:
+            # context-managed so the repair fixpoints nest under this span
+            with self.tracer.span(
+                "delta.repair",
+                cat="engine",
+                inserted=len(delta.inserted),
+                deleted=len(delta.deleted),
+            ) as dsp:
+                plan = plan_repair(g, delta, self.n)
+                for state in self._states.values():
+                    if state.T is None or state.mask is None:
+                        continue
+
+                    def base_rows(idx, grammar=state.grammar):
+                        return init_matrix_rows(g, grammar, idx, pad_to=self.n)
+
+                    def run(T_dev, seed, frozen, st=state):
+                        d = self._decide(st, seed, seed, "warm", repair=True)
+                        st.served_by = d.engine
+                        return self._run_fixpoint(
+                            st.tables, T_dev, seed, frozen=frozen, decision=d
+                        )[:3]  # repair never falls back; drop the event
+
+                    T_host, T_dev, mask_new, st = repair_state(
+                        state.T_host, state.T, state.mask, plan, base_rows,
+                        run, tracer=self.tracer,
+                    )
+                    state.T, state.T_host, state.mask = T_dev, T_host, mask_new
+                    state.placement = placement_of(T_dev)
+                    stats.merge(st)
+                dsp.set(**stats.as_dict())
+            self.metrics.observe_delta(stats)
+        self._version = g.version
+        self._edge_set = frozenset(g.edges)
+        self.delta_stats.merge(stats)
+        self.clock.advance(g.version)
+        self.metrics.delta_epoch.set(self.clock.epoch)
+        return stats
+
     # ------------------------------------------------------------------ #
     def _check_graph(self) -> None:
-        """Reconcile with the graph: any change of its content drops every
-        materialized state (the reference's out-of-band branch); a version
-        bump with unchanged content only advances the epoch."""
+        """Reconcile with the graph: logged edits repair row-wise; any edit
+        the log cannot account for (``graph.edges`` touched directly) drops
+        every materialized state.  The repair path is taken only when the
+        current edge set is exactly the last-served set transformed by the
+        log — an out-of-band edit concurrent with logged edits therefore
+        still forces full invalidation instead of being masked."""
         g = self.graph
         actual = frozenset(g.edges)
-        if actual == self._edge_set and g.n_nodes == self._n_nodes:
-            if g.version != self._version:
-                self._version = g.version
-                self.clock.advance(g.version)
-            return
-        self._states.clear()
-        self._edge_set = actual
-        self._n_nodes = g.n_nodes
-        self._version = g.version
-        self.n = padded_size(g.n_nodes)
-        self.clock.advance(g.version)
+        if g.version != self._version:
+            try:
+                delta = g.delta_since(self._version)
+            except ValueError:
+                # Log compacted past our version: the edit set is unknowable.
+                # If the content still equals what we served (the compacted
+                # tail was a net no-op), just resync the version; otherwise
+                # fall through to full invalidation below.
+                delta = None
+                if g.n_nodes == self._n_nodes and actual == self._edge_set:
+                    self._version = g.version
+                    return
+            if delta is not None:
+                expected = (
+                    self._edge_set | set(delta.inserted)
+                ) - set(delta.deleted)
+                if g.n_nodes == self._n_nodes and actual == expected:
+                    self._ingest_delta(delta)
+                    return
+        if actual != self._edge_set or g.n_nodes != self._n_nodes:
+            self._states.clear()  # out-of-band edit: full invalidation
+            self._edge_set = actual
+            self._n_nodes = g.n_nodes
+            self._version = g.version
+            self.n = padded_size(g.n_nodes)
+            self.clock.advance(g.version)
 
     def _state_for(self, gkey: tuple, g: CNFGrammar) -> _GrammarState:
         state = self._states.get(gkey)
@@ -240,10 +343,11 @@ class QueryEngine:
         seed: np.ndarray,
         new: np.ndarray,
         cache: str,
+        repair: bool = False,
     ) -> PlanDecision:
         """Build the planner features for one closure call and decide.  The
         port has no mesh and no block-sparse backend, so the candidates are
-        dense, frontier and bitpacked."""
+        dense, frontier and bitpacked (dense and bitpacked for a repair)."""
         tables = state.tables
         f = PlanFeatures(
             n=self.n,
@@ -252,6 +356,7 @@ class QueryEngine:
             density=len(self.graph.edges) / max(self.graph.n_nodes, 1),
             n_prods=max(tables.n_prods, 1),
             n_nonterms=tables.n_nonterms,
+            repair=repair,
             cache=cache,
             placement=state.placement,
             mesh_devices=0,
@@ -267,22 +372,35 @@ class QueryEngine:
         T: torch.Tensor,
         seed: np.ndarray,
         decision: PlanDecision,
+        frozen: np.ndarray | None = None,
     ):
         """Run the masked closure to completion from ``seed`` rows, growing
         the capacity bucket on overflow (monotone warm restarts, so no work
-        is lost).
+        is lost).  With ``frozen`` (delta repair) the run uses the repair
+        variant: frozen rows are contracted against but never recomputed,
+        so capacity tracks the edit's blast radius, not the cache size.
 
         ``decision`` names the backend the planner picked; every capacity
         overflow is a fallback observation point — when
         :meth:`Planner.should_fallback` fires, the *remaining* closure is
         re-dispatched onto the decision's fallback backend at full
         capacity through the same warm restart.  At most one fallback per
-        run; pinned decisions never fall back.
+        run; pinned decisions and repairs never fall back.
 
         Returns ``(T_device, M_host, n_calls, fallback_event)``."""
         mask = np.asarray(seed)
-        eng_name = decision.engine
+        repair = frozen is not None
+        eng_name = repair_engine_name(decision.engine) if repair else decision.engine
         cap = bucket_for(max(decision.row_capacity, int(mask.sum())), self.n)
+        n_frozen = cap_c = 0
+        if repair:
+            frozen_dev = torch.from_numpy(np.asarray(frozen)).to(self.device)
+            n_frozen = int(np.asarray(frozen).sum())
+            if eng_name != "bitpacked":
+                # dense/frontier repair compacts the contraction axis over
+                # active + frozen rows; the packed repair contracts full
+                # packed words instead
+                cap_c = bucket_for(max(cap, int(mask.sum()) + n_frozen), self.n)
         calls = 0
         fallback_event: dict | None = None
         tracer = self.tracer
@@ -291,7 +409,7 @@ class QueryEngine:
             cat="engine",
             engine=eng_name,
             semantics="relational",
-            repair=False,
+            repair=repair,
             seed_rows=int(mask.sum()),
         ) as csp:
             while True:
@@ -299,7 +417,8 @@ class QueryEngine:
                 misses_before = self.plans.stats.compile_misses
                 exe = self.plans.get(
                     PlanKey(
-                        tables, eng_name, self.n, cap, instrumented=instrumented
+                        tables, eng_name, self.n, cap, repair=repair,
+                        ctx_capacity=cap_c, instrumented=instrumented,
                     ),
                     provenance="pinned" if decision.pinned else "planned",
                 )
@@ -309,9 +428,11 @@ class QueryEngine:
                 with iteration_scope(
                     tracer.iteration_sink(csp) if instrumented else None
                 ):
-                    T, M, overflow = exe(
-                        T, torch.from_numpy(mask).to(self.device)
-                    )
+                    src = torch.from_numpy(mask).to(self.device)
+                    if repair:
+                        T, M, overflow = exe(T, src, frozen_dev)
+                    else:
+                        T, M, overflow = exe(T, src)
                     calls += 1
                 mask = M.cpu().numpy()
                 if not overflow:
@@ -337,8 +458,11 @@ class QueryEngine:
                         cap = self.n
                         self.planner.note_fallback()
                         continue
-                # overflow means the active set outgrew cap: the bucket grows
+                # overflow means the active set outgrew cap or (repair) the
+                # context outgrew cap_c, so at least one bucket grows
                 cap = bucket_for(max(cap, grown), self.n)
+                if cap_c:
+                    cap_c = bucket_for(max(cap_c, grown + n_frozen), self.n)
                 csp.add_event(
                     "warm_restart",
                     tracer.clock(),
@@ -405,6 +529,7 @@ class QueryEngine:
             fallback=fb,
         )
         stats.update(self.plans.stats.as_dict())
+        stats.update(self.delta_stats.as_dict())
         outs = []
         for q in batch:
             a0 = state.grammar.index_of(q.start)

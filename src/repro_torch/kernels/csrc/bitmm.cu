@@ -1,10 +1,20 @@
 // Bitpacked Boolean matrix multiplication over the AND/OR semiring, by hand
 // for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/bitmm.py::bitmm_pallas (body
-// _bitmm_kernel).  Same function, same layout:
+// Replaces two TPU kernels of repro/kernels/bitmm.py, as one kernel with a
+// template flag:
+//   * bitmm_pallas (body _bitmm_kernel), entry point repro_bitmm:
 //
-//   out[b, i, j] = OR over {k : bit k of lhs[b, i]} of rhs[b, k, j]
+//       out[b, i, j] = OR over {k : bit k of lhs[b, i]} of rhs[b, k, j]
+//
+//   * bitmm_or_pallas (body _bitmm_or_kernel), entry point repro_bitmm_or —
+//     the fused closure step  out = acc | (lhs x rhs):  each thread seeds
+//     its OR accumulators from its acc words instead of from zero, so the
+//     union costs one read of acc and no second pass over memory.  acc has
+//     out's shape (B, m, w); bit 31 of an acc word survives like any other.
+//     out must not alias acc or the operands (the wrapper always allocates
+//     it): a thread reads its acc words before the k loop and writes the
+//     same words of out after it, but the pointers are __restrict__.
 //
 // lhs (B, m, wk) words packing the contraction axis, rhs (B, k = 32·wk, w)
 // words packing the output axis, out (B, m, w).  Bit t of word v is column
@@ -15,10 +25,11 @@
 // Bounds on an H100 SXM: about 2·B·m·k·w 32-bit integer operations (an AND
 // and an OR per output word per contraction bit) on the SMs' INT32 lanes
 // (132 SMs x 64 lanes x 1.98 GHz = 16.7e12 ops/s), and as bytes the three
-// word arrays — but the rhs is re-read once per row tile: B·k·w·4·ceil(m/TM)
-// bytes, which L2 (50 MB) absorbs only in part at full size.  The AND/OR
-// count drops with the data: a k-step whose lhs word is zero on every row
-// of the block contributes nothing and is skipped, which is exact.
+// word arrays (four with acc) — but the rhs is re-read once per row tile:
+// B·k·w·4·ceil(m/TM) bytes, which L2 (50 MB) absorbs only in part at full
+// size.  The AND/OR count drops with the data: a k-step whose lhs word is
+// zero on every row of the block contributes nothing and is skipped, which
+// is exact with or without acc (acc only seeds the accumulators).
 //
 // Design.  The Pallas grid (B, m/ti, w/tw, k/tk) walks k sequentially with
 // the output block resident in VMEM.  Here blocks are independent: the grid
@@ -43,9 +54,12 @@ constexpr int TW = 64;   // output words per block
 constexpr int KC = 8;    // lhs words staged per chunk
 constexpr int ROWS_PER_THREAD = TM / 8;
 
+// kAcc: seed the accumulators from acc_in (bitmm_or); else from zero.
+template <bool kAcc>
 __global__ void __launch_bounds__(256)
 bitmm_kernel(const uint32_t* __restrict__ lhs,
              const uint32_t* __restrict__ rhs,
+             const uint32_t* __restrict__ acc_in,
              uint32_t* __restrict__ out,
              int m, int wk, int w) {
   __shared__ uint32_t lhs_s[TM][KC];
@@ -63,6 +77,17 @@ bitmm_kernel(const uint32_t* __restrict__ lhs,
   uint32_t acc[ROWS_PER_THREAD][2];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r][0] = acc[r][1] = 0u;
+  if constexpr (kAcc) {
+    // the same (row, word) cells this thread stores at the end
+    const uint32_t* acc_b = acc_in + b * (size_t)m * (size_t)w;
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_THREAD; ++r) {
+      const int row = row0 + ty * ROWS_PER_THREAD + r;
+      if (row >= m) continue;
+      if (word0 + tx < w) acc[r][0] = acc_b[(size_t)row * w + word0 + tx];
+      if (word0 + tx + 32 < w) acc[r][1] = acc_b[(size_t)row * w + word0 + tx + 32];
+    }
+  }
 
   for (int kc = 0; kc < wk; kc += KC) {
     bool any = false;
@@ -121,16 +146,29 @@ bitmm_kernel(const uint32_t* __restrict__ lhs,
   }
 }
 
+template <bool kAcc>
+int launch(const void* lhs, const void* rhs, const void* acc, void* out,
+           int B, int m, int wk, int w, void* stream) {
+  const dim3 grid((w + TW - 1) / TW, (m + TM - 1) / TM, B);
+  const dim3 block(32, 8);
+  bitmm_kernel<kAcc><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lhs), static_cast<const uint32_t*>(rhs),
+      static_cast<const uint32_t*>(acc), static_cast<uint32_t*>(out),
+      m, wk, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on ``stream`` and
+// Plain C entry points (bound with ctypes).  Each launches on ``stream`` and
 // returns cudaGetLastError() as an int: 0 when the launch was accepted.
 extern "C" int repro_bitmm(const void* lhs, const void* rhs, void* out,
                            int B, int m, int wk, int w, void* stream) {
-  const dim3 grid((w + TW - 1) / TW, (m + TM - 1) / TM, B);
-  const dim3 block(32, 8);
-  bitmm_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(lhs), static_cast<const uint32_t*>(rhs),
-      static_cast<uint32_t*>(out), m, wk, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(lhs, rhs, nullptr, out, B, m, wk, w, stream);
+}
+
+extern "C" int repro_bitmm_or(const void* lhs, const void* rhs,
+                              const void* acc, void* out,
+                              int B, int m, int wk, int w, void* stream) {
+  return launch<true>(lhs, rhs, acc, out, B, m, wk, w, stream);
 }

@@ -20,3 +20,19 @@ def bitmm_ref(lhs_packed: torch.Tensor, rhs_packed: torch.Tensor) -> torch.Tenso
     lhs = unpack_bits(lhs_packed, k).to(torch.float32)
     rhs = unpack_bits(rhs_packed, 32 * w).to(torch.float32)
     return pack_bits(torch.matmul(lhs, rhs) > 0)
+
+
+def bitmm_or_ref(
+    lhs_packed: torch.Tensor, rhs_packed: torch.Tensor, acc_packed: torch.Tensor
+) -> torch.Tensor:
+    """Fused closure step ``acc | (lhs x rhs)`` on int32 words: lhs
+    (B, m, k/32), rhs (B, k, w), acc (B, m, w) -> (B, m, w).  Rectangular
+    like :func:`bitmm_ref`; at square shapes it is the function of the
+    reference's ``bitmm_or_pallas``."""
+    prod = bitmm_ref(lhs_packed, rhs_packed)
+    if acc_packed.shape != prod.shape:
+        raise ValueError(
+            f"bitmm_or_ref: acc is {tuple(acc_packed.shape)}, the product is "
+            f"{tuple(prod.shape)}"
+        )
+    return acc_packed | prod

@@ -7,9 +7,10 @@ registers its families on a registry once and caches labeled children up
 front, so hot-path calls (``observe_cache``) are attribute bumps with no
 dict construction.
 
-This is the relational slice of the reference's bundles: the plan-cache
-and closure families.  The serving, delta, count and block-sparse
-families come with the slices that feed them.
+This is the port's slice of the reference's bundles: the plan-cache,
+closure and delta families.  The serving, count and block-sparse families
+(and ``delta_epoch_lag``, fed by the serving loop) come with the slices
+that feed them.
 
 Bundles are memoized per registry (:meth:`EngineMetrics.on`): every
 engine that asks for "the engine metrics of this registry" gets the same
@@ -17,7 +18,7 @@ families instead of a double-registration error.
 """
 from __future__ import annotations
 
-from .metrics import Counter, Histogram, MetricsRegistry, REGISTRY
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry, REGISTRY
 
 # iteration counts per closure call: warm restarts double capacity, so
 # calls are short; the tail bucket catches pathological grammars
@@ -40,7 +41,7 @@ class _Bundle:
 
 
 class EngineMetrics(_Bundle):
-    """Engine-side families: plan cache and closure calls."""
+    """Engine-side families: plan cache, closure calls and delta repair."""
 
     _slot = "_repro_engine_bundle"
 
@@ -60,6 +61,25 @@ class EngineMetrics(_Bundle):
             "Warm-restart ladder length per fixpoint solve",
             buckets=ITER_BUCKETS, registry=registry,
         )
+        self.delta_rows_repaired = Counter(
+            "delta_rows_repaired_total",
+            "Materialized rows repaired in place by delta ingest",
+            registry=registry,
+        )
+        self.delta_rows_evicted = Counter(
+            "delta_rows_evicted_total",
+            "Materialized rows evicted (frozen-row overflow) by delta ingest",
+            registry=registry,
+        )
+        self.delta_repair_iters = Counter(
+            "delta_repair_iters_total",
+            "Fixpoint iterations spent in delta repair closures",
+            registry=registry,
+        )
+        self.delta_epoch = Gauge(
+            "delta_epoch", "Current graph epoch of the engine",
+            registry=registry,
+        )
         self._hit = self.cache_lookups.labels(state="hit")
         self._miss = self.cache_lookups.labels(state="miss")
 
@@ -69,3 +89,9 @@ class EngineMetrics(_Bundle):
     def observe_closure(self, engine: str, calls: int) -> None:
         self.closure_calls.labels(engine=engine).inc(calls)
         self.closure_iters.observe(calls)
+
+    def observe_delta(self, stats) -> None:
+        """Fold one ``DeltaStats`` into the counters."""
+        self.delta_rows_repaired.inc(stats.rows_repaired)
+        self.delta_rows_evicted.inc(stats.rows_evicted)
+        self.delta_repair_iters.inc(stats.repair_iters)
