@@ -1,5 +1,7 @@
 """Build and bind the hand-written CUDA kernels of csrc/bitmm.cu: ``bitmm``
-and its fused sibling ``bitmm_or`` (one kernel with a template flag).
+and its fused sibling ``bitmm_or`` (one kernel with a template flag; each
+64-row tile takes a sparse row-gather path or a dense staged path by its
+set-bit count, see the source's header).
 
 The library is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with plain C entry points and loaded with ``ctypes``.  The build happens
@@ -28,6 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the most lhs words per row a launch takes (csrc/bitmm.cu: the union and
+#: the staging list, 8 bytes per word, beside the 50 KB ring in 227 KB)
+MAX_LHS_WORDS = 22780
+
 # the loaded library, and what its build reported
 _LIB: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
@@ -44,57 +50,72 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, compiled on first call (``BUILD_INFO`` then
-    holds the build seconds, the library path and ptxas's report)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the library's C entry points: (argument types, result type)
+_ENTRIES = {
+    "repro_bitmm": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "repro_bitmm_or": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "repro_bitmm_path": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "repro_bitmm_sparse_max_bits": ([], _I),
+}
+
+
+def load(source: Path = SOURCE) -> tuple[ctypes.CDLL, dict]:
+    """Compile ``source`` with NVCC_FLAGS into BUILD_DIR (unless a library
+    of the same source and flags is there) and load it, its entry points
+    bound (those of ``_ENTRIES`` it has: another revision of the source may
+    have only the two public ones).  Returns the library and its build's
+    seconds, path and ptxas report (kept beside the library, for a later
+    process that finds it built)."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     path = BUILD_DIR / f"libbitmm_{digest}.so"
+    log_path = path.with_suffix(".log")
     t0 = time.perf_counter()
-    log = ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             capture_output=True,
             text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+                f"nvcc failed ({proc.returncode}) building {source}:\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        log_tmp = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        log_tmp.write_text(proc.stdout + proc.stderr)
+        os.replace(log_tmp, log_path)
         os.replace(tmp, path)  # atomic: concurrent builds race safely
-        log = proc.stdout + proc.stderr
+    log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
-    lib.repro_bitmm.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.repro_bitmm.restype = ctypes.c_int
-    lib.repro_bitmm_or.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.repro_bitmm_or.restype = ctypes.c_int
-    BUILD_INFO.update(
-        seconds=time.perf_counter() - t0, path=str(path), log=log.strip()
-    )
-    _LIB = lib
-    return lib
+    for name, (argtypes, restype) in _ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+    info = dict(seconds=time.perf_counter() - t0, path=str(path), log=log.strip())
+    return lib, info
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library of this checkout, compiled on first call
+    (``BUILD_INFO`` then holds what ``load`` reports)."""
+    global _LIB
+    if _LIB is None:
+        _LIB, info = load(SOURCE)
+        BUILD_INFO.update(info)
+    return _LIB
 
 
 def _check_operands(kernel: str, lhs: torch.Tensor, rhs: torch.Tensor,
-                    **more: torch.Tensor) -> tuple[int, int, int, int]:
+                    acc: torch.Tensor | None = None) -> tuple[int, int, int, int]:
     """Raise on anything the kernel does not take; returns ``(B, m, wk, w)``."""
-    named = {"lhs": lhs, "rhs": rhs, **more}
+    named = {"lhs": lhs, "rhs": rhs}
+    if acc is not None:
+        named["acc"] = acc
     for name, t in named.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, not CUDA")
@@ -114,19 +135,27 @@ def _check_operands(kernel: str, lhs: torch.Tensor, rhs: torch.Tensor,
             f"{kernel}: shapes {tuple(lhs.shape)} x {tuple(rhs.shape)} do "
             "not contract (need equal batch and lhs words · 32 == rhs rows)"
         )
-    if min(B, m, wk, w) < 1 or B > 65535 or -(-m // 64) > 65535:
+    if min(B, m, wk, w) < 1 or B > 65535 or wk > MAX_LHS_WORDS:
         raise ValueError(
             f"{kernel}: shapes {tuple(lhs.shape)} x {tuple(rhs.shape)} are "
-            "outside the launch grid (need 1 <= B <= 65535, 1 <= m <= "
-            "64·65535, wk >= 1, w >= 1)"
+            "outside the launch (need 1 <= B <= 65535, m >= 1, w >= 1 and "
+            f"1 <= lhs words <= {MAX_LHS_WORDS}: a block's shared memory "
+            "holds two words per lhs word beside the ring)"
+        )
+    if acc is not None and tuple(acc.shape) != (B, m, w):
+        raise ValueError(
+            f"{kernel}: acc is {tuple(acc.shape)}, the product is {(B, m, w)}"
         )
     return B, m, wk, w
 
 
 def _launch(entry: str, args: tuple, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(library(), entry)(*args, stream)
+    fn = getattr(library(), entry)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
@@ -151,17 +180,45 @@ def bitmm_or_cuda(
     rhs (B, k, w) and acc (B, m, w) int32, into a fresh (B, m, w) tensor —
     never into ``acc`` — on the current stream.  Raises on anything the
     kernel does not take."""
-    B, m, wk, w = _check_operands("bitmm_or_cuda", lhs, rhs, acc=acc)
-    if tuple(acc.shape) != (B, m, w):
-        raise ValueError(
-            f"bitmm_or_cuda: acc is {tuple(acc.shape)}, the product is "
-            f"{(B, m, w)}"
-        )
+    B, m, wk, w = _check_operands("bitmm_or_cuda", lhs, rhs, acc)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
     _launch(
         "repro_bitmm_or",
         (lhs.data_ptr(), rhs.data_ptr(), acc.data_ptr(), out.data_ptr(),
          B, m, wk, w),
+        lhs.device,
+    )
+    return out
+
+
+def sparse_max_bits() -> int:
+    """The compiled-in path threshold of ``bitmm_cuda`` and
+    ``bitmm_or_cuda``: a 64-row tile with at most this many set lhs bits
+    takes the sparse row gather, a denser one the staged dense path."""
+    return int(library().repro_bitmm_sparse_max_bits())
+
+
+def bitmm_path_cuda(
+    lhs: torch.Tensor,
+    rhs: torch.Tensor,
+    acc: torch.Tensor | None = None,
+    *,
+    sparse_max_bits: int,
+) -> torch.Tensor:
+    """``bitmm_cuda`` (``acc`` None) or ``bitmm_or_cuda`` with the path
+    threshold given: 0 sends every non-empty tile to the dense path,
+    ``2**31 - 1`` every tile to the sparse one.  For timing the two paths
+    and testing each; the main path calls the two kernels above, which use
+    the compiled-in threshold.  Not counted as a launch of either."""
+    if not 0 <= sparse_max_bits <= 2**31 - 1:
+        raise ValueError(f"sparse_max_bits {sparse_max_bits} is not an int32 >= 0")
+    B, m, wk, w = _check_operands("bitmm_path_cuda", lhs, rhs, acc)
+    out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
+    _launch(
+        "repro_bitmm_path",
+        (lhs.data_ptr(), rhs.data_ptr(),
+         None if acc is None else acc.data_ptr(), out.data_ptr(),
+         B, m, wk, w, sparse_max_bits),
         lhs.device,
     )
     return out

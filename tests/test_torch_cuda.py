@@ -142,3 +142,117 @@ def test_engine_repair_on_card_matches_engine_on_cpu(card, backend):
     assert torch.equal(got_state.T.cpu(), want_state.T)
     if backend == "bitpacked":
         assert ops.or_launches > before
+
+
+# ---------------------------------------------------------------------- #
+# the two paths of the kernel (sparse row gather, staged dense tiles)
+# ---------------------------------------------------------------------- #
+
+INT_MAX = 2**31 - 1
+
+
+def _tile_bits(rng, rows, k, n_bits):
+    """A (rows, k) Boolean tile with exactly ``n_bits`` set bits."""
+    flat = np.zeros(rows * k, dtype=bool)
+    flat[rng.choice(rows * k, size=n_bits, replace=False)] = True
+    return flat.reshape(rows, k)
+
+
+def _path_case(rng, name, threshold):
+    """(lhs bits (B, m, k), rhs words, acc words) of one named case."""
+    B, m, k, w, d = 2, 100, 256, 40, 0.05
+    if name.startswith("w="):
+        w = int(name[2:])
+    elif name == "ragged m=1":
+        m = 1
+    elif name == "ragged m=130":
+        m = 130
+    elif name == "tile_bitmm batch":
+        B, m, k, w, d = 512, 128, 128, 4, 0.1
+    lhs = rng.random((B, m, k)) < d
+    lhs[..., 31::32] |= rng.random(lhs[..., 31::32].shape) < d  # bit 31
+    if name == "all-empty tiles":
+        lhs[:] = False
+    elif name == "single set bit":
+        lhs[:] = False
+        lhs[1, 37, 31] = True  # bit 31 of word 0
+    elif name == "threshold edges":
+        # tiles with threshold + 1, threshold, 0 and 1 set bits: dense,
+        # sparse, empty and sparse in one launch
+        k = 32 * -(-(threshold + 2) // (64 * 32))
+        B, m, w = 1, 256, 496
+        lhs = np.zeros((B, m, k), dtype=bool)
+        lhs[0, :64] = _tile_bits(rng, 64, k, threshold + 1)
+        lhs[0, 64:128] = _tile_bits(rng, 64, k, threshold)
+        lhs[0, 192:] = _tile_bits(rng, 64, k, 1)
+    rhs = _words(rng, (B, k, 32 * w), 0.2)
+    rhs[:, ::3] |= torch.iinfo(torch.int32).min
+    acc = _words(rng, (B, m, 32 * w), 0.05)
+    acc[:, ::2] |= torch.iinfo(torch.int32).min
+    operands = tm.pack_bits(torch.from_numpy(lhs)), rhs, acc
+    if name == "misaligned":
+        operands = tuple(_misaligned(t) for t in operands)
+    return operands
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one word past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _on_card(t, card):
+    """``t`` on the card, keeping its offset from a 16-byte boundary."""
+    if t.storage_offset() == 0:
+        return t.to(card)
+    buf = torch.empty(t.numel() + t.storage_offset(), dtype=t.dtype, device=card)
+    out = buf[t.storage_offset():].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+PATH_CASES = ["all-empty tiles", "single set bit", "threshold edges",
+              "w=1", "w=3", "w=5", "w=40", "w=496", "w=600", "w=601",
+              "ragged m=1", "ragged m=130", "tile_bitmm batch", "misaligned"]
+
+
+@pytest.mark.parametrize("name", PATH_CASES)
+def test_both_paths_match_plain_version(card, name):
+    """bitmm and bitmm_or word-equal to the plain versions through the
+    compiled-in threshold and with each path forced: every case above,
+    bit 31 in lhs, rhs and acc, acc all zeros and all ones."""
+    from repro_torch.kernels.bitmm import bitmm_path_cuda, sparse_max_bits
+
+    threshold = sparse_max_bits()
+    lhs, rhs, acc = (_on_card(t, card) for t in _path_case(
+        np.random.default_rng(PATH_CASES.index(name)), name, threshold))
+    want = ref.bitmm_ref(lhs, rhs)
+    want_or = ref.bitmm_or_ref(lhs, rhs, acc)
+    assert torch.equal(ops.bitmm(lhs, rhs), want)
+    assert torch.equal(ops.bitmm_or(lhs, rhs, acc), want_or)
+    for t in (0, INT_MAX, threshold):
+        assert torch.equal(bitmm_path_cuda(lhs, rhs, sparse_max_bits=t), want)
+        assert torch.equal(
+            bitmm_path_cuda(lhs, rhs, acc, sparse_max_bits=t), want_or)
+        zero = bitmm_path_cuda(lhs, rhs, torch.zeros_like(acc), sparse_max_bits=t)
+        assert torch.equal(zero, want)
+        ones = bitmm_path_cuda(lhs, rhs, torch.full_like(acc, -1),
+                               sparse_max_bits=t)
+        assert bool((ones == -1).all())
+    torch.cuda.synchronize()
+
+
+def test_path_entry_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.bitmm import bitmm_path_cuda
+
+    lhs = torch.zeros((2, 64, 4), dtype=torch.int32, device=card)
+    rhs = torch.zeros((2, 128, 4), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="not an int32"):
+        bitmm_path_cuda(lhs, rhs, sparse_max_bits=-1)
+    with pytest.raises(ValueError, match="acc is"):
+        bitmm_path_cuda(lhs, rhs, lhs[:, :32].contiguous(), sparse_max_bits=0)
+    before = (ops.launches, ops.or_launches)
+    bitmm_path_cuda(lhs, rhs, sparse_max_bits=0)
+    assert (ops.launches, ops.or_launches) == before  # not a main-path launch

@@ -185,3 +185,37 @@ def test_bitmm_cuda_rejects_cpu_tensors():
     rhs = torch.zeros((1, 64, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="not CUDA"):
         bitmm_cuda(lhs, rhs)
+
+
+def test_bitmm_path_cuda_rejects_cpu_tensors_and_bad_thresholds():
+    from repro_torch.kernels.bitmm import bitmm_path_cuda
+
+    lhs = torch.zeros((1, 4, 2), dtype=torch.int32)
+    rhs = torch.zeros((1, 64, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="not CUDA"):
+        bitmm_path_cuda(lhs, rhs, sparse_max_bits=0)
+    with pytest.raises(ValueError, match="not an int32"):
+        bitmm_path_cuda(lhs, rhs, sparse_max_bits=2**31)
+
+
+def test_max_lhs_words_fits_the_kernels_shared_memory():
+    """The wrapper's MAX_LHS_WORDS is the most lhs words per row whose
+    union and staging list fit beside the ring in a block's shared memory,
+    by the constants of csrc/bitmm.cu."""
+    import re
+
+    from repro_torch.kernels import bitmm as kbitmm
+
+    src = kbitmm.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    tm, stages, dwt, smem = (const(n) for n in ("TM", "STAGES", "DWT", "kMaxSmem"))
+    slot = tm + 32 * 32 * dwt
+
+    def fits(words):
+        return 4 * (tm + 4 + 2 * words + stages * slot) <= smem
+
+    assert kbitmm.MAX_LHS_WORDS % 4 == 0
+    assert fits(kbitmm.MAX_LHS_WORDS) and not fits(kbitmm.MAX_LHS_WORDS + 4)
