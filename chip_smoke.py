@@ -14,10 +14,19 @@ port's Hellings worklist oracle.  Then the delta path: on warm all-pairs
 states of the bitpacked, dense and auto engines, seeded edge edits through
 ``QueryEngine.apply_delta`` are repaired row by row (the bitpacked repair
 through ``bitmm_or``) and checked against Hellings, against a fresh
-engine's closure, and for bit-identical untouched rows.  Last, the kernels
-are timed at the main path's shapes (one call, device time, with L2 cold,
-and per path) and over a density sweep that shows where the two paths
-cross.  ``--baseline-cu`` names another revision's kernel source (say, the
+engine's closure, and for bit-identical untouched rows.  Then single-path
+CFPQ (paper Section 5) on the dense, frontier and auto engines: batches of
+16 single-source queries in pizza copy 0 with one witness path per pair,
+checked against Hellings and by a CYK check of each witness (its length
+equal to its entry of the length state), the host mirror of the 7 GB
+length state against the device, a seeded edit of copy 0 repaired in
+place; the dense phase also times one min-plus product against its bound.
+Then ``serve_open_loop``: 512 requests at 200 offered queries/s through
+``repro_torch.serve.CFPQServer`` with a fenced write halfway, every
+answer checked against Hellings at the epoch it reports.  Last, the
+kernels are timed at the main path's shapes (one call, device time, with
+L2 cold, and per path) and over a density sweep that shows where the two
+paths cross.  ``--baseline-cu`` names another revision's kernel source (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands.  Each phase
 prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
@@ -805,12 +814,12 @@ def _copy_oracle(graph, g, copy: int, off: int) -> set[tuple[int, int]]:
     return {(i + lo, j + lo) for i, j in rel}
 
 
-def _seeded_edits(rng, graph, g, off: int):
-    """Two deletes and three inserts in each of pizza copies 0 and 1; insert
+def _seeded_edits(rng, graph, g, off: int, copies=(0, 1)):
+    """Two deletes and three inserts in each of the pizza ``copies``; insert
     labels are the grammar's terminals, endpoints in the same copy."""
     labels = sorted(g.term_prods)
     delete, insert = [], []
-    for copy in (0, 1):
+    for copy in copies:
         lo = copy * off
         own = [e for e in graph.edges if lo <= e[0] < lo + off]
         for k in rng.choice(len(own), size=2, replace=False):
@@ -819,6 +828,15 @@ def _seeded_edits(rng, graph, g, off: int):
             i, j = (int(v) + lo for v in rng.integers(0, off, size=2))
             insert.append((i, labels[int(rng.integers(0, len(labels)))], j))
     return delete, insert
+
+
+def span_ms(tracer, first: int, name: str, **attrs) -> float:
+    """Total ms of the spans called ``name`` (with ``attrs``) recorded
+    since span number ``first``."""
+    return 1e3 * sum(
+        s.duration_s for s in tracer.spans[first:] if s.name == name
+        and all(s.attrs.get(k) == v for k, v in attrs.items())
+    )
 
 
 def phase_delta(dev):
@@ -847,12 +865,6 @@ def phase_delta(dev):
         return QueryEngine(
             graph, config=EngineConfig(engine=name, device=str(dev)),
             metrics=MetricsRegistry(), tracer=Tracer(iteration_events=False),
-        )
-
-    def span_ms(eng, first, name, **attrs):
-        return 1e3 * sum(
-            s.duration_s for s in eng.tracer.spans[first:] if s.name == name
-            and all(s.attrs.get(k) == v for k, v in attrs.items())
         )
 
     for backend in ("bitpacked", "dense", "auto"):
@@ -910,10 +922,10 @@ def phase_delta(dev):
         emit(
             f"delta_{backend}", edits={"delete": len(delete), "insert": len(insert)},
             warm_allpairs_ms=warm_ms, apply_delta_ms=delta_ms,
-            delta_repair_span_ms=span_ms(eng, first, "delta.repair"),
-            repair_closure_execute_ms=span_ms(eng, first, "closure.execute",
-                                              repair=True),
-            host_copy_ms=span_ms(eng, first, "delta.host_copy"),
+            delta_repair_span_ms=span_ms(eng.tracer, first, "delta.repair"),
+            repair_closure_execute_ms=span_ms(
+                eng.tracer, first, "closure.execute", repair=True),
+            host_copy_ms=span_ms(eng.tracer, first, "delta.host_copy"),
             host_copy_rows=sum(s.attrs["rows"] for s in eng.tracer.spans[first:]
                                if s.name == "delta.host_copy"),
             full_state_copy_ms=full_copy_ms, fresh_allpairs_ms=fresh_ms,
@@ -951,6 +963,400 @@ def phase_delta(dev):
     return repair_info
 
 
+# ---------------------------------------------------------------------- #
+# single-path semantics and the serving loop at full width
+# ---------------------------------------------------------------------- #
+
+SP_SOURCES = 16  # single-source queries per batch, all in pizza copy 0
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def cyk_derives(g, start: str, word: list[str]) -> bool:
+    """CYK over the CNF grammar ``g``: does ``start`` derive ``word``?"""
+    n = len(word)
+    if n == 0:
+        return start in g.nullable
+    tab = np.zeros((n, n + 1, g.n_nonterms), dtype=bool)  # [i, j) spans
+    for i, x in enumerate(word):
+        for a in g.term_prods.get(x, ()):
+            tab[i, i + 1, a] = True
+    for span in range(2, n + 1):
+        for i in range(n - span + 1):
+            j = i + span
+            for a, b, c in g.binary_prods:
+                if not tab[i, j, a]:
+                    tab[i, j, a] = bool(
+                        np.any(tab[i, i + 1:j, b] & tab[i + 1:j, j, c]))
+    return bool(tab[0, n, g.index_of(start)])
+
+
+def check_witness(edges: set, g, i: int, j: int, path, length: int,
+                  what: str) -> None:
+    """``path`` is a walk i ->* j over ``edges`` whose label word the
+    grammar derives from S, with ``length`` edges."""
+    if not path:
+        check(i == j and "S" in g.nullable, f"{what}: empty witness of ({i}, {j})")
+        return
+    check(path[0][0] == i and path[-1][2] == j, f"{what}: witness ends wrong")
+    prev = i
+    for e in path:
+        check(e[0] == prev and e in edges, f"{what}: {e} breaks the walk")
+        prev = e[2]
+    check(cyk_derives(g, "S", [x for _, x, _ in path]),
+          f"{what}: witness word not derived from S")
+    check(len(path) == length,
+          f"{what}: witness has {len(path)} edges, L says {length}")
+
+
+def state_equals_mirror(L: torch.Tensor, host: np.ndarray) -> bool:
+    """The host mirror equals the whole device state, one plane at a time."""
+    return all(
+        torch.equal(torch.from_numpy(host[a]).to(L.device), L[a])
+        for a in range(L.shape[0])
+    )
+
+
+def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables) -> dict:
+    """One dense single-path iteration's min-plus product at R = 1024 on
+    rows of the state: lhs (P, R, R), rhs (P, R, n); its time (CUDA events,
+    the loop's launches included), checked equal at two chunk sizes; and
+    its bound: inputs read once and the output written once over HBM, one
+    add and one min per candidate over the float32 rate."""
+    from repro_torch.core.semantics import _minplus, minplus_chunk
+
+    R = 1024
+    idx = torch.from_numpy(np.nonzero(mask)[0][:R]).to(L.device)
+    b_idx, c_idx = tables.index_tensors(L.device)
+    rows = L[:, idx, :]
+    lhs = rows[:, :, idx][b_idx].contiguous()
+    rhs = rows[c_idx].contiguous()
+    del rows
+    P, rows_n, K = lhs.shape
+    cols = rhs.shape[-1]
+    out = _minplus(lhs, rhs)
+    check(torch.equal(out, _minplus(lhs, rhs, chunk=64)),
+          "min-plus differs across chunk sizes")
+    check(not bool(torch.isnan(out).any()), "min-plus produced NaN")
+    ms = time_ms(lambda: _minplus(lhs, rhs), reps=3)
+    bytes_ms = 4 * (lhs.numel() + rhs.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * P * rows_n * K * cols / FP32_OPS_PER_S * 1e3
+    del lhs, rhs, out
+    torch.cuda.empty_cache()
+    return {"R": rows_n, "K": K, "cols": cols, "P": P, "ms": ms,
+            "chunk": minplus_chunk(P, rows_n, cols, K, "cuda"),
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_single_path(dev, backend: str, time_minplus: bool = False) -> None:
+    """Single-path CFPQ at full width on ``backend``: a cold batch of 16
+    single-source queries in pizza copy 0, a second batch of 16, the
+    Section 5 golden case, then seeded edits to copy 0 through
+    ``apply_delta`` and the cold batch again.  Checked: pairs against
+    Hellings, every witness a walk whose word Query 1 derives with as many
+    edges as its entry of L, the host mirror against the device state,
+    rows outside copy 0 bit-identical across the edit, and the repaired
+    rows' support against a fresh engine's closure."""
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import Graph, paper_example_graph, paper_table_graph
+    from repro_torch.engine import EngineConfig, Query, QueryEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    g = query1_grammar().to_cnf()
+    a0 = g.index_of("S")
+    off = paper_table_graph("pizza").n_nodes
+    graph = paper_table_graph("pizza").repeat(PIZZA_COPIES)
+    picks = np.random.default_rng(3).choice(off, size=2 * SP_SOURCES, replace=False)
+    cold, second = [int(s) for s in picks[:SP_SOURCES]], [int(s) for s in picks[SP_SOURCES:]]
+
+    def engine_of(gr):
+        # iteration events on: the closure's iterations are counted
+        return QueryEngine(gr, config=EngineConfig(engine=backend, device=str(dev)),
+                           metrics=MetricsRegistry(), tracer=Tracer())
+
+    eng = engine_of(graph)
+    tr = eng.tracer
+
+    def serve(sources, label):
+        oracle = _copy_oracle(graph, g, 0, off)
+        edges = set(graph.edges)
+        first = len(tr.spans)
+        outs, ms, launches = run_phase(lambda: eng.query_batch(
+            [Query(g, "S", sources=(s,), semantics="single_path") for s in sources]))
+        peak = torch.cuda.max_memory_allocated()
+        (st,) = eng._states.values()
+        n_paths = 0
+        for s, r in zip(sources, outs):
+            check(r.pairs == {p for p in oracle if p[0] == s},
+                  f"single_path_{backend} {label}: source {s} != Hellings")
+            check(set(r.paths) == r.pairs, f"{label}: a pair without a witness")
+            for (i, j), path in r.paths.items():
+                check_witness(edges, g, i, j, path, int(st.sp_L_host[a0, i, j]),
+                              f"single_path_{backend} {label} ({i}, {j})")
+                n_paths += 1
+        closures = [s for s in tr.spans[first:] if s.name == "closure.execute"]
+        keys = [k for k in eng.plans._exe if k.semantics == "single_path"]
+        return {
+            "wall_ms": ms, "cache": outs[0].stats.cache,
+            "route": (outs[0].stats.planner or {}).get("label"),
+            "closure_engine": [s.attrs["engine"] for s in closures],
+            "closure_execute_ms": span_ms(tr, first, "closure.execute"),
+            "closure_calls": sum(s.attrs.get("calls", 0) for s in closures),
+            "iterations": sum(1 for s in closures for e in s.events
+                              if e["name"] == "iteration"),
+            "row_capacity": max((k.row_capacity for k in keys), default=None),
+            "active_rows": outs[0].stats["active_rows"],
+            "mirror_init_ms": span_ms(tr, first, "state.mirror_init"),
+            "host_copy_ms": span_ms(tr, first, "closure.host_copy"),
+            "host_copy_bytes": sum(s.attrs["bytes"] for s in tr.spans[first:]
+                                   if s.name == "closure.host_copy"),
+            "extraction_ms": span_ms(tr, first, "witness.extract"),
+            "pairs": sum(len(r.pairs) for r in outs), "witnesses": n_paths,
+            "launches": launches, "max_memory_allocated": peak,
+        }
+
+    batches = {"cold": serve(cold, "cold"), "second": serve(second, "second")}
+    (st,) = eng._states.values()
+    check(state_equals_mirror(st.sp_L, st.sp_L_host),
+          f"single_path_{backend}: host mirror != device state")
+    timing = minplus_timing(st.sp_L, st.sp_mask, st.tables) if time_minplus else None
+
+    # the paper's example: (1, 2) freezes at 2, (0, 2) at 4, (0, 0) at 6
+    small = QueryEngine(paper_example_graph(),
+                        config=EngineConfig(engine=backend, device=str(dev)))
+    r = small.query(Query(g, "S", semantics="single_path"))
+    golden = {(0, 0): 6, (0, 2): 4, (1, 2): 2}
+    check(r.pairs == set(golden), f"single_path_{backend}: golden pairs {r.pairs}")
+    for (i, j), path in r.paths.items():
+        check_witness(set(paper_example_graph().edges), g, i, j, path, golden[(i, j)],
+                      f"single_path_{backend} golden ({i}, {j})")
+
+    # seeded edits to copy 0; rows of the other copies must not move
+    delete, insert = _seeded_edits(np.random.default_rng(7), graph, g, off, copies=(0,))
+    keep = st.sp_L[:, off:, :].clone()
+    first = len(tr.spans)
+    dst, delta_ms, launches = run_phase(
+        lambda: eng.apply_delta(insert=insert, delete=delete))
+    peak = torch.cuda.max_memory_allocated()
+    (st,) = eng._states.values()
+    check(dst.rows_repaired > 0 and dst.rows_evicted > 0,
+          f"single_path_{backend}: the edit repaired or evicted nothing: {dst}")
+    check(torch.equal(st.sp_L[:, off:, :], keep),
+          f"single_path_{backend}: rows outside copy 0 changed")
+    del keep
+    check(state_equals_mirror(st.sp_L, st.sp_L_host),
+          f"single_path_{backend}: host mirror != device state after the edit")
+    repairs = [s for s in tr.spans[first:]
+               if s.name == "closure.execute" and s.attrs.get("repair")]
+    delta = {
+        "edits": {"delete": len(delete), "insert": len(insert)},
+        "apply_delta_ms": delta_ms,
+        "delta_repair_span_ms": span_ms(tr, first, "delta.repair"),
+        "repair_closure_execute_ms": span_ms(tr, first, "closure.execute", repair=True),
+        "repair_engine": [s.attrs["engine"] for s in repairs],
+        "host_copy_ms": span_ms(tr, first, "delta.host_copy"),
+        "host_copy_rows": sum(s.attrs["rows"] for s in tr.spans[first:]
+                              if s.name == "delta.host_copy"),
+        "launches": launches, "max_memory_allocated": peak, **dst.as_dict(),
+    }
+    batches["after_edit"] = serve(cold, "after the edit")
+    (st,) = eng._states.values()
+    rows = [int(i) for i in np.nonzero(st.sp_mask)[0] if i < graph.n_nodes]
+    fresh = engine_of(Graph(graph.n_nodes, list(graph.edges)))
+    fresh.query(Query(g, "S", sources=tuple(rows), semantics="single_path"))
+    (fst,) = fresh._states.values()
+    M = st.sp_mask
+    check(bool(fst.sp_mask[M].all()), "the fresh closure misses repaired rows")
+    check(np.array_equal(np.isfinite(st.sp_L_host[:, M, :]),
+                         np.isfinite(fst.sp_L_host[:, M, :])),
+          f"single_path_{backend}: repaired support != a fresh closure")
+    del fresh, fst, st, eng
+    torch.cuda.empty_cache()
+    emit(f"single_path_{backend}", n=graph.n_nodes, sources=SP_SOURCES,
+         batches=batches, delta=delta, minplus=timing,
+         golden={f"{i},{j}": v for (i, j), v in golden.items()})
+
+
+SERVE_REQUESTS = 512
+SERVE_QPS = 200.0
+SERVE_WRITE_AFTER = 256  # the fenced write follows this many arrivals
+
+
+def _pctl(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+
+
+def phase_serve(dev) -> None:
+    """The async server at full width: 512 single-source requests (Query 1
+    and Query 2, Zipf-ish repeated sources over all 16 copies, one in 8 a
+    single-path Query 1 request in copy 0) at 200 offered queries/s, and a
+    fenced ``apply_delta`` on copies 0 and 1 after the 256th arrival (2
+    deletes and 3 inserts in copy 0, 3 inserts in copy 1).
+    Checked: every answer against Hellings of its copy at the epoch it
+    reports, requests admitted before the write served at the old epoch,
+    witnesses, exactly-once accounting with no failure, and both kernels
+    launched."""
+    import asyncio
+
+    from repro_torch.core.grammar import query1_grammar, query2_grammar
+    from repro_torch.core.graph import paper_table_graph
+    from repro_torch.engine import EngineConfig, Query, QueryEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import CFPQServer, Overloaded, ServeConfig, poisson_arrivals
+
+    grammars = {"q1": query1_grammar().to_cnf(), "q2": query2_grammar().to_cnf()}
+    off = paper_table_graph("pizza").n_nodes
+    graph = paper_table_graph("pizza").repeat(PIZZA_COPIES)
+    rng = np.random.default_rng(11)
+    arrivals = poisson_arrivals(SERVE_REQUESTS, SERVE_QPS, rng)
+    hot = rng.integers(0, graph.n_nodes, size=8)
+    hot0 = rng.integers(0, off, size=8)
+    work = []
+    for k in range(SERVE_REQUESTS):
+        if k % 8 == 7:  # single-path, copy 0
+            src = int(hot0[int(rng.integers(0, 8))]) if rng.random() < 0.5 \
+                else int(rng.integers(0, off))
+            work.append(("q1", Query(grammars["q1"], "S", sources=(src,),
+                                     semantics="single_path")))
+            continue
+        name = ("q1", "q2")[int(rng.integers(0, 2))]
+        src = int(hot[int(rng.integers(0, 8))]) if rng.random() < 0.5 \
+            else int(rng.integers(0, graph.n_nodes))
+        work.append((name, Query(grammars[name], "S", sources=(src,))))
+    # copy 0: 2 deletes and 3 inserts (its rows are evicted, then rebuilt
+    # from the inserted sources); copy 1: 3 inserts only (its cached rows
+    # are re-seeded warm, which the planner routes to the packed repair)
+    erng = np.random.default_rng(7)
+    delete, insert = _seeded_edits(erng, graph, grammars["q1"], off, copies=(0,))
+    insert += _seeded_edits(erng, graph, grammars["q1"], off, copies=(1,))[1]
+
+    # Hellings per copy before the write (one copy, shifted) and after it
+    oracle = {0: {}, 1: {}}
+    for name, g in grammars.items():
+        base = _copy_oracle(graph, g, 0, off)
+        oracle[0][name] = {c: {(i + c * off, j + c * off) for i, j in base}
+                          for c in range(PIZZA_COPIES)}
+    edges = {0: set(graph.edges)}
+
+    eng = QueryEngine(graph, config=EngineConfig(engine="auto", device=str(dev)),
+                      metrics=MetricsRegistry())
+    a0 = grammars["q1"].index_of("S")
+    write = {}
+    inner_apply = eng.apply_delta
+
+    def apply_delta(insert, delete):
+        # the writer's engine call: runs in the server's worker after the
+        # fence; keeps copy 0's S-plane lengths of the old epoch
+        (st,) = [s for s in eng._states.values() if s.sp_L is not None]
+        write["old_L"] = st.sp_L_host[a0, :off, :].copy()
+        t0 = time.perf_counter()
+        out = inner_apply(insert=insert, delete=delete)
+        torch.cuda.synchronize()
+        write["apply_delta_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    eng.apply_delta = apply_delta
+    inner_batch = eng.query_batch
+
+    def query_batch(*args, **kwargs):
+        # the server times this call as batch-exec: end it on the device
+        out = inner_batch(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out
+
+    eng.query_batch = query_batch
+    cfg = ServeConfig(max_batch=16, batch_window_s=0.005, max_queue_depth=256)
+
+    async def main():
+        results = [None] * SERVE_REQUESTS
+        shed = 0
+        async with CFPQServer(eng, cfg) as srv:
+
+            async def one(k):
+                nonlocal shed
+                await asyncio.sleep(float(arrivals[k]))
+                try:
+                    results[k] = await srv.submit(work[k][1])
+                except Overloaded:
+                    shed += 1
+
+            async def writer():
+                await asyncio.sleep(float(arrivals[SERVE_WRITE_AFTER - 1]) + 1e-3)
+                t0 = time.perf_counter()
+                write["stats"] = await srv.apply_delta(insert=insert, delete=delete)
+                write["write_ms"] = (time.perf_counter() - t0) * 1e3
+
+            await asyncio.gather(writer(), *[one(k) for k in range(SERVE_REQUESTS)])
+            stats = srv.stats
+        return results, shed, stats
+
+    ops.launches = ops.or_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, shed, stats = asyncio.run(asyncio.wait_for(main(), 900))
+    wall_s = time.perf_counter() - t0
+    launches = {"bitmm": ops.launches, "bitmm_or": ops.or_launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    edges[1] = set(graph.edges)
+    for name, g in grammars.items():
+        oracle[1][name] = dict(oracle[0][name])
+        for c in (0, 1):
+            oracle[1][name][c] = _copy_oracle(graph, g, c, off)
+    (sp_state,) = [s for s in eng._states.values() if s.sp_L is not None]
+    new_L = sp_state.sp_L_host
+    served = [r for r in results if r is not None]
+    check(stats.failed == 0, f"serve_open_loop: {stats.failed} requests failed")
+    check(stats.served + stats.failed + stats.cancelled == stats.admitted,
+          f"serve_open_loop: accounting broken: {stats.as_dict()}")
+    check(len(served) == stats.served and len(served) + shed == SERVE_REQUESTS,
+          "serve_open_loop: a request was lost")
+    n_sp = 0
+    for k, r in enumerate(results):
+        if r is None:
+            continue
+        name, q = work[k]
+        ep = r.stats["epoch"]
+        check(ep in (0, 1), f"serve_open_loop: epoch {ep}")
+        if k < SERVE_WRITE_AFTER:
+            check(ep == 0, f"serve_open_loop: request {k} admitted before the "
+                  "write was served after it")
+        (src,) = q.sources
+        want = {p for p in oracle[ep][name][src // off] if p[0] == src}
+        check(r.pairs == want, f"serve_open_loop: request {k} ({name}, "
+              f"{q.semantics}, source {src}, epoch {ep}) != Hellings")
+        if q.semantics == "single_path":
+            n_sp += 1
+            L = write["old_L"] if ep == 0 else new_L[a0]
+            for (i, j), path in r.paths.items():
+                check_witness(edges[ep], grammars["q1"], i, j, path,
+                              int(L[i, j]), f"serve_open_loop request {k}")
+    e2e = [r.stats["queue_delay_s"] + r.stats["batch_exec_s"] for r in served]
+    qd = [r.stats["queue_delay_s"] for r in served]
+    bx = [r.stats["batch_exec_s"] for r in served]
+    emit("serve_open_loop", requests=SERVE_REQUESTS, offered_qps=SERVE_QPS,
+         served=stats.served, failed=stats.failed, cancelled=stats.cancelled,
+         admitted=stats.admitted, shed=shed, single_path=n_sp, wall_s=wall_s,
+         throughput_qps=len(served) / wall_s,
+         e2e_ms={"p50": _pctl(e2e, 50), "p99": _pctl(e2e, 99)},
+         queue_delay_ms={"p50": _pctl(qd, 50), "p99": _pctl(qd, 99)},
+         batch_exec_ms={"p50": _pctl(bx, 50), "p99": _pctl(bx, 99)},
+         mean_batch=stats.mean_batch, batches=stats.batches,
+         flushes=stats.flushes, planner_routes=stats.planner_routes,
+         fallbacks=stats.fallbacks, launches=launches,
+         write_ms=write["write_ms"], apply_delta_ms=write["apply_delta_ms"],
+         fence_ms=write["write_ms"] - write["apply_delta_ms"],
+         delta=write["stats"].as_dict(), max_memory_allocated=peak, n=graph.n_nodes)
+    check(launches["bitmm"] > 0, "serve_open_loop never launched bitmm")
+    check(launches["bitmm_or"] > 0, "serve_open_loop never launched bitmm_or")
+    del eng, sp_state, new_L
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -974,6 +1380,9 @@ def main() -> None:
     phase_bitmm_or_checks(dev)
     T, tables, launches = phase_main_path(dev)
     repair = phase_delta(dev)
+    for backend in ("dense", "frontier", "auto"):
+        phase_single_path(dev, backend, time_minplus=backend == "dense")
+    phase_serve(dev)
     phase_kernel_timing(T, tables, launches, repair, base)
     print(json.dumps({"ok": True, "device": info}), flush=True)
 

@@ -5,17 +5,17 @@ Layers:
   * mutation   — ``core/graph.py``: ``insert_edges`` / ``delete_edges``
     append to an edge log under a monotone version counter;
   * repair     — ``repair.py`` (+ the reverse-reachability sweep and the
-    repair closures in ``core/closure.py``): turns a version range into
-    row-level surgery on a materialized masked-closure state;
+    repair closures in ``core/closure.py`` and ``core/semantics.py``):
+    turns a version range into row-level surgery on a materialized
+    masked-closure state, Boolean or single-path length state;
   * serving    — ``txn.py`` + ``engine/service.py``: ``apply_delta`` on the
     query engine, epoch-tagged snapshots, repair stats in query results.
-
-Single-path state repair comes with the single-path slice.
 """
 from .repair import (
     DeltaStats,
     RepairPlan,
     plan_repair,
+    repair_single_path_state,
     repair_state,
     reverse_reach_rows,
 )
@@ -28,6 +28,7 @@ __all__ = [
     "Snapshot",
     "StaleSnapshotError",
     "plan_repair",
+    "repair_single_path_state",
     "repair_state",
     "reverse_reach_rows",
 ]

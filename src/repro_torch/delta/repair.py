@@ -1,6 +1,6 @@
 """Row-level repair of materialized masked-closure states — the port of
-``repro.delta.repair`` (relational states; the reference's DELTA.md holds
-the design).
+``repro.delta.repair`` (relational and single-path states; the reference's
+DELTA.md holds the design).
 
 The engine caches, per grammar, a state ``(T, mask)`` whose rows under
 ``mask`` equal the all-pairs closure rows.  An edge edit at source row
@@ -19,11 +19,13 @@ deletions (non-monotone)
     they are *evicted*: reset to the new graph's base row and dropped from
     the mask (they recompute on next touch).
 
-Invariants (tests/test_torch_delta.py holds them bit for bit against the
-reference): after repair, rows under ``mask`` equal a from-scratch closure
-of the mutated graph; rows outside an insertion's ancestor set are frozen
-— handed to the repair closure as context and returned bit-identical;
-eviction is conservative, never wrong.  Both sweeps run on the union of
+Invariants (tests/test_torch_delta.py and tests/test_torch_single_path.py
+hold them bit for bit against the reference): after repair, rows under
+``mask`` equal a from-scratch closure of the mutated graph; rows outside an
+insertion's ancestor set are frozen — handed to the repair closure as
+context and returned bit-identical (for a length state, every frozen
+length annotation too, which keeps extracted witnesses valid); eviction is
+conservative, never wrong.  Both sweeps run on the union of
 the pre- and post-delta edge sets, one adjacency for both directions.
 
 The port keeps the cached state on its device and a host copy beside it.
@@ -253,5 +255,47 @@ def repair_state(
 
     return _repair_rows(
         T_host, T_dev, mask, plan, base_rows_fn, run_closure, compose,
+        tracer=tracer,
+    )
+
+
+def repair_single_path_state(
+    L_host: np.ndarray,
+    L_dev: torch.Tensor,
+    mask: np.ndarray,
+    plan: RepairPlan,
+    base_rows_fn,
+    run_closure,
+    tracer=NULL_TRACER,
+) -> tuple[np.ndarray, torch.Tensor, np.ndarray, DeltaStats]:
+    """Single-path analog of :func:`repair_state` for cached length states.
+
+    ``L`` is the (|N|, n, n) f32 matrix of core/semantics.py —
+    ``isfinite(L)`` is the Boolean closure, finite values are witness
+    lengths frozen at first discovery.  The surgery is the same row plan,
+    adapted to the freeze contract: previously finite entries are NEVER
+    overwritten, so
+
+    * inserted sources only *fill* entries that were absent (new base
+      edges enter at length 1; existing annotations stay), then re-enter
+      the repair fixpoint as seeds;
+    * evicted rows reset wholesale to base lengths — any row whose
+      recorded splits pass through an evicted row is itself an ancestor of
+      the deleted edge (hence evicted too), so surviving rows' annotations
+      stay extraction-consistent.
+
+    ``run_closure(L_dev, seed_mask, frozen_mask) -> (L_dev', M', n_calls)``
+    runs the single-path repair fixpoint.  Returns ``(L_host, L_dev, mask,
+    stats)``; like :func:`repair_state`, only the rows the repair may have
+    written are copied back into ``L_host``.
+    """
+
+    def compose(old, base, ev):
+        base_l = np.where(base, np.float32(1.0), np.float32(np.inf))
+        keep = np.isfinite(old) & ~ev  # freeze: never overwrite finite
+        return np.where(keep, old, base_l).astype(np.float32)
+
+    return _repair_rows(
+        L_host, L_dev, mask, plan, base_rows_fn, run_closure, compose,
         tracer=tracer,
     )

@@ -18,16 +18,22 @@ Invariants
   :class:`PlanKey` and of nothing else; it never depends on graph data, so
   it survives every graph edit and may be shared across engines serving
   different graphs of the same padded size.  The key keeps every field of
-  the reference's ``PlanKey``; the port builds relational single-device
-  keys (``semantics="relational"``, ``mesh=()``, ``tile=0``), masked or
-  repair (``repair=True``, with ``ctx_capacity`` the contraction-context
-  bucket of the dense/frontier repair, 0 for the packed one).
+  the reference's ``PlanKey``; the port builds single-device keys
+  (``mesh=()``, ``tile=0``) of the relational and single-path semantics,
+  masked or repair (``repair=True``, with ``ctx_capacity`` the
+  contraction-context bucket of the dense/frontier and every single-path
+  repair, 0 for the packed one).
+* **Key aliasing is semantic.**  :func:`sp_engine_name` collapses keys
+  exactly where the closure function is shared (bitpacked single-path
+  aliases to dense; the one single-path repair keys as dense), so the
+  hit counters reflect real reuse.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 from repro_torch.core import closure as _closure
+from repro_torch.core import semantics as _semantics
 from repro_torch.core.matrices import ProductionTables
 from repro_torch.obs.trace import emit_iteration
 
@@ -45,6 +51,24 @@ REPAIR_ENGINES = {
     "frontier": _closure.masked_repair_closure,
     "bitpacked": _closure.masked_bitpacked_repair_closure,
 }
+
+
+#: masked single-path (length-annotated) closure per backend.  Lengths are
+#: f32 — there is no packed layout to exploit — so the bitpacked backend
+#: routes through the dense min-plus path (see :func:`sp_engine_name`).
+SP_ENGINES = {
+    "dense": _semantics.masked_single_path_closure,
+    "frontier": _semantics.masked_frontier_single_path_closure,
+}
+
+
+def sp_engine_name(engine: str, repair: bool = False) -> str:
+    """Backend name to key single-path plans under: engines without a
+    length-annotated variant (bitpacked) alias to dense, and the repair
+    variant — one function serves every backend — always keys as dense."""
+    if repair:
+        return "dense"
+    return engine if engine in SP_ENGINES else "dense"
 
 
 def repair_engine_name(engine: str) -> str:
@@ -126,8 +150,9 @@ class CompiledClosureCache:
     """Masked-closure callables keyed on PlanKey.
 
     ``get(key)`` returns a callable ``(T, src_mask) -> (T, mask, overflow)``
-    — ``(T, src_mask, frozen_mask)`` for a repair key — with the grammar
-    tables and capacities bound.  The name and counters
+    — ``(T, src_mask, frozen_mask)`` for a repair key; ``T`` is the f32
+    length state for a single-path key — with the grammar tables and
+    capacities bound.  The name and counters
     are the reference's; in the port a "compile" is the binding of the
     closure's statics.
     """
@@ -154,13 +179,19 @@ class CompiledClosureCache:
 
     @staticmethod
     def _build(key: PlanKey):
-        if key.semantics != "relational" or key.mesh or key.tile:
+        if key.semantics not in ("relational", "single_path") or key.mesh \
+                or key.tile:
             raise ValueError(
-                f"the port serves relational single-device plans only: {key}"
+                "the port serves relational and single-path single-device "
+                f"plans only: {key}"
             )
+        single_path = key.semantics == "single_path"
         hook = emit_iteration if key.instrumented else None
         if key.repair:
-            fn = REPAIR_ENGINES[key.engine]
+            fn = (
+                _semantics.masked_single_path_repair_closure
+                if single_path else REPAIR_ENGINES[key.engine]
+            )
             kw = {"row_capacity": key.row_capacity, "iter_hook": hook}
             if key.ctx_capacity:  # dense/frontier compact the contraction
                 kw["ctx_capacity"] = key.ctx_capacity
@@ -169,7 +200,7 @@ class CompiledClosureCache:
                 return fn(T, key.tables, src_mask, frozen_mask, **kw)
 
             return exe_repair
-        fn = MASKED_ENGINES[key.engine]
+        fn = (SP_ENGINES if single_path else MASKED_ENGINES)[key.engine]
 
         def exe(T, src_mask):
             return fn(

@@ -1,14 +1,24 @@
-"""Batched single-/multi-source CFPQ serving — the port's relational slice
-of ``repro.engine.service``.
+"""Batched single-/multi-source CFPQ serving — the port's relational and
+single-path slice of ``repro.engine.service``.
 
-``QueryEngine`` is bound to one graph and serves relational queries over
-any number of grammars.  A batch is coalesced per grammar: the union of all
+``QueryEngine`` is bound to one graph and serves queries over any number of
+grammars.  A batch is coalesced per (grammar, semantics): the union of all
 requested source rows is computed in ONE masked-closure call (see
 core/closure.py), then each request slices its rows out.  Per grammar the
 engine keeps a *materialized* closure state ``(T, mask)`` on its device —
 rows listed in ``mask`` are already exact — so repeated or overlapping
 queries against an unchanged graph are pure row slices, and new sources
 warm-start the monotone fixpoint from the cached state.
+
+Single-path queries (``semantics="single_path"``, paper Section 5) are
+served the same way from a second state per grammar: the (N, n, n) f32
+length matrix of core/semantics.py (``isfinite`` of it IS the Boolean
+closure), kept by the masked single-path closures on the same capacity
+ladder, and a host mirror of it that the witness extractor
+(``PathExtractor``) reads.  After a closure only the rows that joined the
+mask are copied into the mirror: finite lengths are frozen, and rows
+already under the mask were exact, so no other row changed.  Witnesses
+are memoized per grammar state until the next ingested delta.
 
 Cache states reported per request:
   ``hit``   every requested row was already materialized;
@@ -30,7 +40,7 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,10 +54,12 @@ from repro_torch.core.matrices import (
     padded_size,
     resolve_device,
 )
+from repro_torch.core.semantics import PathExtractor, init_lengths
 from repro_torch.delta.repair import (
     DeltaStats,
     placement_of,
     plan_repair,
+    repair_single_path_state,
     repair_state,
 )
 from repro_torch.delta.txn import EpochClock, Snapshot
@@ -55,14 +67,19 @@ from repro_torch.obs.instruments import EngineMetrics
 from repro_torch.obs.trace import NULL_TRACER, iteration_scope
 
 from .config import EngineConfig
-from .plan import CompiledClosureCache, PlanKey, bucket_for, repair_engine_name
+from .plan import (
+    CompiledClosureCache,
+    PlanKey,
+    bucket_for,
+    repair_engine_name,
+    sp_engine_name,
+)
 from .planner import PlanDecision, PlanFeatures, Planner
 from .stats import QueryStats
 
 #: semantics of the reference engine that this port does not serve yet,
 #: and the ROADMAP.md item ("Modules to port") that will port each
 _NOT_PORTED = {
-    "single_path": "item 6, single-path semantics",
     "conjunctive": "item 8, conjunctive",
     "count": "item 9, count and all-paths",
 }
@@ -83,8 +100,10 @@ class Query:
     """One CFPQ request.
 
     ``sources=None`` asks for the all-pairs relation; otherwise only pairs
-    whose source is listed are computed/returned.  Only
-    ``semantics="relational"`` (the pair set) is served by the port.
+    whose source is listed are computed/returned.  ``semantics`` is
+    ``"relational"`` (pair set) or ``"single_path"`` (one witness path per
+    pair, paper Section 5); the conjunctive and count semantics of the
+    reference are not ported yet.
     """
 
     grammar: CNFGrammar
@@ -97,6 +116,8 @@ class Query:
 class QueryResult:
     query: Query
     pairs: set[tuple[int, int]]
+    #: one witness path per pair (``semantics="single_path"`` only)
+    paths: dict[tuple[int, int], list[tuple[int, str, int]]] | None
     stats: QueryStats
 
 
@@ -107,10 +128,21 @@ class _GrammarState:
     T: torch.Tensor | None = None  # (N, n, n) bool closure state, on device
     T_host: np.ndarray | None = None  # host copy for slicing
     mask: np.ndarray | None = None  # rows of T that are exact
-    # planner-visible state metadata: where the cached tensor lives
+    # single-path state beside the Boolean one: the (N, n, n) f32 length
+    # matrix on the device, its host mirror and its own row mask
+    sp_L: torch.Tensor | None = None
+    sp_L_host: np.ndarray | None = None
+    sp_mask: np.ndarray | None = None
+    extractor: PathExtractor | None = None  # edge/production index cache
+    # witness memo keyed (start, i, j): valid until the next ingested delta
+    # (warm closures only add entries, they never rewrite frozen ones)
+    sp_paths: dict = field(default_factory=dict)
+    # planner-visible state metadata: where each cached tensor lives
     # ("local" | "none") and which backend last served it
     placement: str = "none"
+    sp_placement: str = "none"
     served_by: str = ""
+    sp_served_by: str = ""
 
 
 class QueryEngine:
@@ -157,20 +189,36 @@ class QueryEngine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = EngineMetrics.on(metrics)
 
+    def set_tracer(self, tracer) -> None:
+        """Install a tracer after construction (the serving loop shares
+        its tracer with the engine it drives)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+
+    def set_metrics(self, registry) -> None:
+        """Re-point the engine's metric families at ``registry`` (the
+        serving loop funnels engine counters into the registry its
+        exposition endpoint serves)."""
+        self.metrics = EngineMetrics.on(registry)
+
     # ------------------------------------------------------------------ #
     def query(self, q: Query, snapshot: Snapshot | None = None) -> QueryResult:
         return self.query_batch([q], snapshot=snapshot)[0]
 
     def query_batch(
-        self, queries: list[Query], snapshot: Snapshot | None = None
+        self,
+        queries: list[Query],
+        snapshot: Snapshot | None = None,
+        stats_extra: dict | None = None,
     ) -> list[QueryResult]:
-        """Serve a batch: one closure call per grammar group.
+        """Serve a batch: one closure call per (grammar, semantics) group.
 
         ``snapshot`` (from :meth:`snapshot`) pins the epoch the caller
         expects to read; if a delta was committed since, the batch raises
-        ``StaleSnapshotError``.  Results also carry ``batch_total``
-        (queries submitted together) and ``batch_groups`` (closure-call
-        groups they were sliced into).
+        ``StaleSnapshotError``.  ``stats_extra`` entries are merged into
+        every result's stats (the serving loop tags coalesced batches with
+        it).  Results also carry ``batch_total`` (queries submitted
+        together) and ``batch_groups`` (closure-call groups they were
+        sliced into).
         """
         with self._lock:
             self._check_graph()
@@ -179,15 +227,23 @@ class QueryEngine:
             groups: dict[tuple, list[int]] = {}
             for qi, q in enumerate(queries):
                 self.validate_query(q)
-                groups.setdefault(grammar_key(q.grammar), []).append(qi)
-            for gkey, qidx in groups.items():
+                groups.setdefault(
+                    (grammar_key(q.grammar), q.semantics), []
+                ).append(qi)
+            for (gkey, semantics), qidx in groups.items():
                 state = self._state_for(gkey, queries[qidx[0]].grammar)
-                outs = self._serve_relational(state, [queries[i] for i in qidx])
+                batch = [queries[i] for i in qidx]
+                if semantics == "single_path":
+                    outs = self._serve_single_path(state, batch)
+                else:
+                    outs = self._serve_relational(state, batch)
                 for i, out in zip(qidx, outs):
                     results[i] = out
             for out in results:
                 out.stats["batch_total"] = len(queries)  # type: ignore[union-attr]
                 out.stats["batch_groups"] = len(groups)  # type: ignore[union-attr]
+                if stats_extra:
+                    out.stats.update(stats_extra)  # type: ignore[union-attr]
             return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------ #
@@ -236,26 +292,57 @@ class QueryEngine:
             ) as dsp:
                 plan = plan_repair(g, delta, self.n)
                 for state in self._states.values():
-                    if state.T is None or state.mask is None:
-                        continue
+                    state.extractor = None  # edge indices are stale
+                    state.sp_paths.clear()  # memoized witnesses may walk them
 
                     def base_rows(idx, grammar=state.grammar):
                         return init_matrix_rows(g, grammar, idx, pad_to=self.n)
 
-                    def run(T_dev, seed, frozen, st=state):
-                        d = self._decide(st, seed, seed, "warm", repair=True)
-                        st.served_by = d.engine
-                        return self._run_fixpoint(
-                            st.tables, T_dev, seed, frozen=frozen, decision=d
-                        )[:3]  # repair never falls back; drop the event
+                    if state.T is not None and state.mask is not None:
 
-                    T_host, T_dev, mask_new, st = repair_state(
-                        state.T_host, state.T, state.mask, plan, base_rows,
-                        run, tracer=self.tracer,
-                    )
-                    state.T, state.T_host, state.mask = T_dev, T_host, mask_new
-                    state.placement = placement_of(T_dev)
-                    stats.merge(st)
+                        def run(T_dev, seed, frozen, st=state):
+                            d = self._decide(
+                                st, seed, seed, "relational", "warm",
+                                repair=True,
+                            )
+                            st.served_by = d.engine
+                            return self._run_fixpoint(
+                                st.tables, T_dev, seed, frozen=frozen,
+                                decision=d,
+                            )[:3]  # repair never falls back; drop the event
+
+                        T_host, T_dev, mask_new, st = repair_state(
+                            state.T_host, state.T, state.mask, plan,
+                            base_rows, run, tracer=self.tracer,
+                        )
+                        state.T, state.T_host = T_dev, T_host
+                        state.mask = mask_new
+                        state.placement = placement_of(T_dev)
+                        stats.merge(st)
+                    if state.sp_L is not None and state.sp_mask is not None:
+                        # insertions warm-start the min-plus row repair
+                        # (frozen rows bit-identical); deletions evict the
+                        # affected rows to base lengths
+
+                        def run_sp(L_dev, seed, frozen, st=state):
+                            d = self._decide(
+                                st, seed, seed, "single_path", "warm",
+                                repair=True,
+                            )
+                            st.sp_served_by = d.engine
+                            return self._run_fixpoint(
+                                st.tables, L_dev, seed, frozen=frozen,
+                                semantics="single_path", decision=d,
+                            )[:3]
+
+                        L_host, L_dev, sp_mask, st = repair_single_path_state(
+                            state.sp_L_host, state.sp_L, state.sp_mask, plan,
+                            base_rows, run_sp, tracer=self.tracer,
+                        )
+                        state.sp_L, state.sp_L_host = L_dev, L_host
+                        state.sp_mask = sp_mask
+                        state.sp_placement = placement_of(L_dev)
+                        stats.merge(st)
                 dsp.set(**stats.as_dict())
             self.metrics.observe_delta(stats)
         self._version = g.version
@@ -310,17 +397,20 @@ class QueryEngine:
         return state
 
     def validate_query(self, q: Query) -> None:
-        """Raise ``ValueError`` for a malformed or not-yet-ported query."""
+        """Raise ``ValueError`` for a malformed or not-yet-ported query.
+        ``query_batch`` validates every member; the serving loop calls
+        this per query at admission, so one bad request fails its own
+        caller instead of the whole coalesced batch."""
         if q.semantics in _NOT_PORTED:
             raise ValueError(
                 f"semantics {q.semantics!r} is not ported to the torch engine "
                 f"yet (ROADMAP.md, modules to port, {_NOT_PORTED[q.semantics]})"
             )
-        if q.semantics != "relational":
+        if q.semantics not in ("relational", "single_path"):
             raise ValueError(f"unknown semantics {q.semantics!r}")
         if not isinstance(q.grammar, CNFGrammar):
             raise ValueError(
-                f"relational queries need a CNFGrammar, got "
+                f"{q.semantics} queries need a CNFGrammar, got "
                 f"{type(q.grammar).__name__}"
             )
         for m in q.sources or ():
@@ -342,12 +432,17 @@ class QueryEngine:
         state: _GrammarState,
         seed: np.ndarray,
         new: np.ndarray,
+        semantics: str,
         cache: str,
         repair: bool = False,
     ) -> PlanDecision:
         """Build the planner features for one closure call and decide.  The
         port has no mesh and no block-sparse backend, so the candidates are
-        dense, frontier and bitpacked (dense and bitpacked for a repair)."""
+        dense, frontier and bitpacked (dense and bitpacked for a relational
+        repair, dense and frontier for single-path)."""
+        placement = (
+            state.sp_placement if semantics == "single_path" else state.placement
+        )
         tables = state.tables
         f = PlanFeatures(
             n=self.n,
@@ -356,9 +451,10 @@ class QueryEngine:
             density=len(self.graph.edges) / max(self.graph.n_nodes, 1),
             n_prods=max(tables.n_prods, 1),
             n_nonterms=tables.n_nonterms,
+            semantics=semantics,
             repair=repair,
             cache=cache,
-            placement=state.placement,
+            placement=placement,
             mesh_devices=0,
             occupied_blocks=0,
         )
@@ -373,12 +469,15 @@ class QueryEngine:
         seed: np.ndarray,
         decision: PlanDecision,
         frozen: np.ndarray | None = None,
+        semantics: str = "relational",
     ):
         """Run the masked closure to completion from ``seed`` rows, growing
         the capacity bucket on overflow (monotone warm restarts, so no work
         is lost).  With ``frozen`` (delta repair) the run uses the repair
         variant: frozen rows are contracted against but never recomputed,
         so capacity tracks the edit's blast radius, not the cache size.
+        ``semantics="single_path"`` runs the length-annotated closures on
+        the f32 state instead (same signatures, same bucket ladder).
 
         ``decision`` names the backend the planner picked; every capacity
         overflow is a fallback observation point — when
@@ -390,16 +489,22 @@ class QueryEngine:
         Returns ``(T_device, M_host, n_calls, fallback_event)``."""
         mask = np.asarray(seed)
         repair = frozen is not None
-        eng_name = repair_engine_name(decision.engine) if repair else decision.engine
+        single_path = semantics == "single_path"
+        if single_path:
+            eng_name = sp_engine_name(decision.engine, repair=repair)
+        elif repair:
+            eng_name = repair_engine_name(decision.engine)
+        else:
+            eng_name = decision.engine
         cap = bucket_for(max(decision.row_capacity, int(mask.sum())), self.n)
         n_frozen = cap_c = 0
         if repair:
             frozen_dev = torch.from_numpy(np.asarray(frozen)).to(self.device)
             n_frozen = int(np.asarray(frozen).sum())
-            if eng_name != "bitpacked":
-                # dense/frontier repair compacts the contraction axis over
-                # active + frozen rows; the packed repair contracts full
-                # packed words instead
+            if single_path or eng_name != "bitpacked":
+                # dense/frontier (and every single-path) repair compacts the
+                # contraction axis over active + frozen rows; the packed
+                # repair contracts full packed words instead
                 cap_c = bucket_for(max(cap, int(mask.sum()) + n_frozen), self.n)
         calls = 0
         fallback_event: dict | None = None
@@ -408,7 +513,7 @@ class QueryEngine:
             "closure.execute",
             cat="engine",
             engine=eng_name,
-            semantics="relational",
+            semantics=semantics,
             repair=repair,
             seed_rows=int(mask.sum()),
         ) as csp:
@@ -418,7 +523,8 @@ class QueryEngine:
                 exe = self.plans.get(
                     PlanKey(
                         tables, eng_name, self.n, cap, repair=repair,
-                        ctx_capacity=cap_c, instrumented=instrumented,
+                        ctx_capacity=cap_c, semantics=semantics,
+                        instrumented=instrumented,
                     ),
                     provenance="pinned" if decision.pinned else "planned",
                 )
@@ -454,7 +560,7 @@ class QueryEngine:
                         csp.add_event(
                             "planner.fallback", tracer.clock(), **fallback_event
                         )
-                        eng_name = fb
+                        eng_name = sp_engine_name(fb) if single_path else fb
                         cap = self.n
                         self.planner.note_fallback()
                         continue
@@ -475,36 +581,84 @@ class QueryEngine:
         return T, mask, calls, fallback_event
 
     def _ensure_rows(
-        self, state: _GrammarState, batch: list[Query]
+        self,
+        state: _GrammarState,
+        batch: list[Query],
+        semantics: str = "relational",
     ) -> tuple[str, PlanDecision | None, dict | None]:
-        """Materialize closure rows covering the batch; returns
-        ``(cache_status, decision, fallback_event)`` — the latter two are
-        None on a pure cache hit (no closure ran, nothing was planned)."""
+        """Materialize closure rows covering the batch (the Boolean state,
+        or the f32 length state and its host mirror for
+        ``semantics="single_path"``); returns ``(cache_status, decision,
+        fallback_event)`` — the latter two are None on a pure cache hit
+        (no closure ran, nothing was planned)."""
+        single_path = semantics == "single_path"
         need = self._need_mask(batch)
         if need is None:
             need = np.ones(self.n, dtype=bool)
             need[self.graph.n_nodes :] = False  # padding rows are empty
-        mask, cur = state.mask, state.T
+        if single_path:
+            mask, cur = state.sp_mask, state.sp_L
+        else:
+            mask, cur = state.mask, state.T
         if mask is not None and (need <= mask).all():
             return "hit", None, None
         status = "miss" if cur is None else "warm"
         if cur is None:
-            cur = init_matrix(
-                self.graph, state.grammar, pad_to=self.n, device=self.device
-            )
+            if single_path:
+                cur = init_lengths(
+                    self.graph, state.grammar, pad_to=self.n, device=self.device
+                )
+            else:
+                cur = init_matrix(
+                    self.graph, state.grammar, pad_to=self.n, device=self.device
+                )
             mask = np.zeros(self.n, dtype=bool)
         with self.tracer.span(
-            "planner.decide", cat="engine", semantics="relational", cache=status
+            "planner.decide", cat="engine", semantics=semantics, cache=status
         ) as psp:
-            decision = self._decide(state, mask | need, need & ~mask, status)
+            decision = self._decide(
+                state, mask | need, need & ~mask, semantics, status
+            )
             psp.set(route=decision.label, pinned=decision.pinned)
         out, M, _, fb = self._run_fixpoint(
-            state.tables, cur, mask | need, decision=decision
+            state.tables, cur, mask | need, decision=decision,
+            semantics=semantics,
         )
-        state.T, state.T_host, state.mask = out, out.cpu().numpy(), M
-        state.placement = "local"
-        state.served_by = fb["to"] if fb else decision.engine
+        served = fb["to"] if fb else decision.engine
+        if single_path:
+            state.sp_L_host = self._mirror_rows(state, out, M & ~mask)
+            state.sp_L, state.sp_mask = out, M
+            state.sp_placement = "local"
+            state.sp_served_by = served
+        else:
+            state.T, state.T_host, state.mask = out, out.cpu().numpy(), M
+            state.placement = "local"
+            state.served_by = served
         return status, decision, fb
+
+    def _mirror_rows(
+        self, state: _GrammarState, L: torch.Tensor, rows: np.ndarray
+    ) -> np.ndarray:
+        """The host mirror of the length state ``L`` after a closure that
+        may have written only ``rows`` (the rows that joined the mask).  A
+        first closure starts the mirror from the base lengths, made on the
+        host as the device state was."""
+        host = state.sp_L_host
+        if host is None:
+            with self.tracer.span(
+                "state.mirror_init", cat="engine", bytes=4 * L.numel()
+            ):
+                host = init_lengths(
+                    self.graph, state.grammar, pad_to=self.n, device="cpu"
+                ).numpy()
+        idx = np.nonzero(rows)[0]
+        with self.tracer.span(
+            "closure.host_copy", cat="engine", rows=len(idx),
+            bytes=4 * L.shape[0] * len(idx) * L.shape[-1],
+        ):
+            tidx = torch.from_numpy(idx).to(L.device)
+            host[:, idx, :] = L[:, tidx, :].cpu().numpy()
+        return host
 
     def _serve_relational(
         self, state: _GrammarState, batch: list[Query]
@@ -539,5 +693,72 @@ class QueryEngine:
                 pairs.update((i, int(j)) for j in np.nonzero(T[a0, i, :nn])[0])
             if q.start in state.grammar.nullable:
                 pairs |= {(m, m) for m in rows}  # empty path m pi m
-            outs.append(QueryResult(q, pairs, stats.copy()))
+            outs.append(QueryResult(q, pairs, None, stats.copy()))
         return outs
+
+    def _serve_single_path(
+        self, state: _GrammarState, batch: list[Query]
+    ) -> list[QueryResult]:
+        """Serve a single-path batch: materialize length rows, then slice
+        pairs and extract one witness per pair from the host mirror."""
+        t0 = time.perf_counter()
+        status, decision, fb = self._ensure_rows(
+            state, batch, semantics="single_path"
+        )
+        L = state.sp_L_host
+        if state.extractor is None:  # invalidated on every ingested delta
+            state.extractor = PathExtractor(self.graph, state.grammar)
+        extractor = state.extractor
+        nn = self.graph.n_nodes
+        # state-scoped memo: repeated/overlapping sources — within a batch
+        # or across batches — extract each witness once per delta epoch;
+        # results get copies so callers can't alias it
+        memo = state.sp_paths
+        sliced = []
+        with self.tracer.span(
+            "witness.extract", cat="engine", queries=len(batch)
+        ) as wsp:
+            extracted = 0
+            for q in batch:
+                a0 = state.grammar.index_of(q.start)
+                rows = range(nn) if q.sources is None else q.sources
+                pairs: set[tuple[int, int]] = set()
+                paths: dict[tuple[int, int], list[tuple[int, str, int]]] = {}
+                for i in rows:
+                    for j in np.nonzero(np.isfinite(L[a0, i, :nn]))[0]:
+                        pairs.add((i, int(j)))
+                        key = (q.start, i, int(j))
+                        path = memo.get(key)
+                        if path is None:
+                            path = memo[key] = extractor.extract(
+                                L, q.start, i, int(j)
+                            )
+                            extracted += 1
+                        paths[(i, int(j))] = list(path)
+                if q.start in state.grammar.nullable:
+                    for m in rows:  # empty path m pi m, as in the relational path
+                        if (m, m) not in pairs:
+                            pairs.add((m, m))
+                            paths[(m, m)] = []
+                sliced.append((q, pairs, paths))
+            wsp.set(extracted=extracted)
+        # latency includes witness extraction — the dominant per-request
+        # host cost on hot serves — not just the closure work
+        latency = time.perf_counter() - t0
+        stats = QueryStats(
+            latency_s=latency,
+            cache=status,
+            engine=state.sp_served_by or self.engine,
+            semantics="single_path",
+            batched_with=len(batch),
+            active_rows=int(state.sp_mask.sum()),
+            epoch=self.clock.epoch,
+            planner=decision.to_dict() if decision is not None else None,
+            fallback=fb,
+        )
+        stats.update(self.delta_stats.as_dict())
+        stats.update(self.plans.stats.as_dict())
+        return [
+            QueryResult(q, pairs, paths, stats.copy())
+            for q, pairs, paths in sliced
+        ]

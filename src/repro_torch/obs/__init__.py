@@ -1,11 +1,19 @@
 """repro_torch.obs — zero-dependency tracing + metrics for the port.
 
 Copies of the reference package's tracer (:mod:`repro_torch.obs.trace`),
-metrics registry (:mod:`repro_torch.obs.metrics`) and the engine's
-instrument bundle (:mod:`repro_torch.obs.instruments`).  Prometheus and Chrome-trace
-export are not ported yet.
+metrics registry (:mod:`repro_torch.obs.metrics`), Prometheus/JSON
+exposition (:mod:`repro_torch.obs.export`), Chrome-trace export
+(:mod:`repro_torch.obs.chrome`) and the serving and engine instrument
+bundles (:mod:`repro_torch.obs.instruments`).
 """
-from .instruments import EngineMetrics
+from .chrome import to_chrome_trace, write_chrome_trace
+from .export import (
+    MetricsEndpoint,
+    render_prometheus,
+    snapshot,
+    write_metrics_json,
+)
+from .instruments import EngineMetrics, ServeMetrics
 from .metrics import (
     Counter,
     Gauge,
@@ -26,11 +34,17 @@ __all__ = [
     "EngineMetrics",
     "Gauge",
     "Histogram",
+    "MetricsEndpoint",
     "MetricsRegistry",
     "NULL_TRACER",
     "REGISTRY",
+    "ServeMetrics",
     "Span",
     "Tracer",
     "emit_iteration",
     "iteration_scope",
+    "render_prometheus",
+    "snapshot",
+    "to_chrome_trace",
+    "write_chrome_trace",
 ]

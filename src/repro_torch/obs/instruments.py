@@ -1,24 +1,32 @@
-"""Standard instrument bundle for the query engine.
+"""Standard instrument bundles for the serving loop and query engine.
 
 The stack's metric *names and labels* are the public interface
 (OBSERVABILITY.md lists them all); this module pins them in one place so
-``engine/service.py`` stays free of exposition details.  The bundle
-registers its families on a registry once and caches labeled children up
-front, so hot-path calls (``observe_cache``) are attribute bumps with no
-dict construction.
+``serve/server.py`` and ``engine/service.py`` stay free of exposition
+details.  Each bundle registers its families on a registry once and
+caches labeled children up front, so hot-path calls (``observe_flush``,
+``observe_cache``) are attribute bumps with no dict construction.
 
-This is the port's slice of the reference's bundles: the plan-cache,
-closure and delta families.  The serving, count and block-sparse families
-(and ``delta_epoch_lag``, fed by the serving loop) come with the slices
-that feed them.
+This is the port's slice of the reference's bundles: the serving
+families, and the engine's plan-cache, closure and delta families (with
+``delta_epoch_lag``, which the serving loop sets).  The count and
+block-sparse families come with the slices that feed them.
 
-Bundles are memoized per registry (:meth:`EngineMetrics.on`): every
-engine that asks for "the engine metrics of this registry" gets the same
-families instead of a double-registration error.
+Bundles are memoized per registry (:meth:`ServeMetrics.on`): the server
+and the engine can both ask for "the serve metrics of this registry" and
+get the same families instead of a double-registration error.
 """
 from __future__ import annotations
 
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry, REGISTRY
+from .metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    LATENCY_BUCKETS_S,
+    MetricsRegistry,
+    REGISTRY,
+    SIZE_BUCKETS,
+)
 
 # iteration counts per closure call: warm restarts double capacity, so
 # calls are short; the tail bucket catches pathological grammars
@@ -38,6 +46,85 @@ class _Bundle:
             cached = cls(registry)
             setattr(registry, cls._slot, cached)
         return cached
+
+
+class ServeMetrics(_Bundle):
+    """Serving-loop families: admission, coalescing, latency, routing."""
+
+    _slot = "_repro_serve_bundle"
+
+    def __init__(self, registry: MetricsRegistry) -> None:
+        self.admitted = Counter(
+            "serve_admitted_total", "Requests accepted at admission",
+            registry=registry,
+        )
+        self.shed = Counter(
+            "serve_shed_total", "Requests rejected by admission control",
+            registry=registry,
+        )
+        self.outcomes = Counter(
+            "serve_outcomes_total",
+            "Resolved requests by outcome (served|failed|cancelled)",
+            labelnames=("outcome",), registry=registry,
+        )
+        self.flushes = Counter(
+            "serve_flushes_total",
+            "Batch-window flushes by trigger reason",
+            labelnames=("reason",), registry=registry,
+        )
+        self.coalesced = Counter(
+            "serve_coalesced_total",
+            "Requests that shared a batch with at least one other",
+            registry=registry,
+        )
+        self.queue_depth = Gauge(
+            "serve_queue_depth", "Requests admitted but not yet resolved",
+            registry=registry,
+        )
+        self.queue_delay = Histogram(
+            "serve_queue_delay_seconds",
+            "Admission to batch-execution start",
+            buckets=LATENCY_BUCKETS_S, registry=registry,
+        )
+        self.batch_exec = Histogram(
+            "serve_batch_exec_seconds",
+            "Engine execution time per flushed batch",
+            buckets=LATENCY_BUCKETS_S, registry=registry,
+        )
+        self.batch_size = Histogram(
+            "serve_batch_size", "Queries per flushed batch",
+            buckets=SIZE_BUCKETS, registry=registry,
+        )
+        self.planner_route = Counter(
+            "planner_route_total",
+            "Batches executed per planner decision label",
+            labelnames=("route",), registry=registry,
+        )
+        self.planner_fallback = Counter(
+            "planner_fallback_total",
+            "Batches that hit a mid-closure planner fallback",
+            registry=registry,
+        )
+        # pre-create the closed label sets so scrapes show zeros rather
+        # than absent series, and hot paths never take the creation lock
+        self._outcome = {
+            k: self.outcomes.labels(outcome=k)
+            for k in ("served", "failed", "cancelled")
+        }
+
+    def observe_flush(self, reason: str, batch: int) -> None:
+        self.flushes.labels(reason=reason).inc()
+        self.batch_size.observe(batch)
+        if batch > 1:
+            self.coalesced.inc(batch)
+
+    def observe_outcome(self, outcome: str, n: float = 1.0) -> None:
+        self._outcome[outcome].inc(n)
+
+    def observe_decision(self, route: str, fallback: bool) -> None:
+        self.planner_route.labels(route=route).inc()
+        if fallback:
+            self.planner_fallback.inc()
 
 
 class EngineMetrics(_Bundle):
@@ -78,6 +165,11 @@ class EngineMetrics(_Bundle):
         )
         self.delta_epoch = Gauge(
             "delta_epoch", "Current graph epoch of the engine",
+            registry=registry,
+        )
+        self.delta_epoch_lag = Gauge(
+            "delta_epoch_lag_seconds",
+            "Wall time the most recent delta spent fenced before apply",
             registry=registry,
         )
         self._hit = self.cache_lookups.labels(state="hit")

@@ -41,6 +41,8 @@ LATENCY_BUCKETS_S = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0,
 )
+# small-integer size buckets (batch sizes, iteration counts)
+SIZE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 
 
 def _label_key(labels: dict) -> tuple:

@@ -256,3 +256,88 @@ def test_path_entry_rejects_what_it_does_not_take(card):
     before = (ops.launches, ops.or_launches)
     bitmm_path_cuda(lhs, rhs, sparse_max_bits=0)
     assert (ops.launches, ops.or_launches) == before  # not a main-path launch
+
+
+# ---------------------------------------------------------------------- #
+# single-path semantics and the serving loop on the card
+# ---------------------------------------------------------------------- #
+
+
+def test_minplus_on_card_matches_cpu_at_every_chunk(card):
+    from repro_torch.core.semantics import _minplus
+
+    rng = np.random.default_rng(23)
+    lhs = rng.integers(1, 20, size=(3, 50, 70)).astype(np.float32)
+    rhs = rng.integers(1, 20, size=(3, 70, 90)).astype(np.float32)
+    lhs[rng.random(lhs.shape) < 0.6] = np.inf
+    rhs[rng.random(rhs.shape) < 0.6] = np.inf
+    want = _minplus(torch.from_numpy(lhs), torch.from_numpy(rhs))
+    for chunk in (1, 3, 64, None):
+        got = _minplus(torch.from_numpy(lhs).to(card), torch.from_numpy(rhs).to(card),
+                       chunk=chunk)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("backend", ["dense", "frontier", "bitpacked", "auto"])
+def test_single_path_on_card_matches_cpu(card, backend):
+    """The same single-path batches and edit on the card and on the CPU:
+    the same pairs, witnesses, cache statuses, length state and mask, and
+    the host mirror equals the device state."""
+    g = query1_grammar().to_cnf()
+    engines, graphs = {}, {}
+    for dev in ("cpu", "cuda"):
+        graphs[dev] = paper_table_graph("skos").repeat(2)
+        engines[dev] = QueryEngine(
+            graphs[dev], config=EngineConfig(engine=backend, device=dev)
+        )
+    batches = [[Query(g, "S", sources=(0, 5), semantics="single_path")],
+               [Query(g, "S", sources=(130,), semantics="single_path"),
+                Query(g, "S", sources=(131,))]]
+
+    def run(dev):
+        eng = engines[dev]
+        out = [eng.query_batch(b) for b in batches]
+        out.append(eng.apply_delta(delete=[(1, "subClassOf_r", 0)],
+                                   insert=[(3, "type_r", 200), (200, "type", 5)]))
+        out.append(eng.query_batch(batches[0]))
+        (state,) = eng._states.values()
+        return out, state
+
+    want, want_state = run("cpu")
+    got, got_state = run("cuda")
+    for w, x in zip(want, got):
+        if isinstance(w, list):
+            assert [(r.pairs, r.paths, r.stats["cache"]) for r in x] == \
+                [(r.pairs, r.paths, r.stats["cache"]) for r in w]
+        else:
+            assert x.as_dict() == w.as_dict()
+    assert np.array_equal(got_state.sp_mask, want_state.sp_mask)
+    assert np.array_equal(got_state.sp_L_host, want_state.sp_L_host)
+    assert torch.equal(got_state.sp_L.cpu(), want_state.sp_L)
+
+
+def test_server_on_card_serves_both_semantics_and_a_fenced_write(card):
+    import asyncio
+
+    from repro_torch.serve import CFPQServer, ServeConfig
+
+    g = query1_grammar().to_cnf()
+    queries = [Query(g, "S", sources=(s,), semantics=sem)
+               for s in (0, 3, 130) for sem in ("relational", "single_path")]
+
+    async def serve(dev):
+        eng = QueryEngine(paper_table_graph("skos").repeat(2),
+                          config=EngineConfig(engine="bitpacked", device=dev))
+        async with CFPQServer(eng, ServeConfig(max_batch=3,
+                                               batch_window_s=0.005)) as srv:
+            first = await asyncio.gather(*[srv.submit(q) for q in queries])
+            await srv.apply_delta(insert=[(3, "type_r", 200), (200, "type", 5)])
+            second = await asyncio.gather(*[srv.submit(q) for q in queries])
+        assert srv.stats.served == srv.stats.admitted == 2 * len(queries)
+        return [(r.pairs, r.paths, r.stats["epoch"]) for r in first + second]
+
+    before = ops.launches
+    want = asyncio.run(asyncio.wait_for(serve("cpu"), 60))
+    got = asyncio.run(asyncio.wait_for(serve("cuda"), 60))
+    assert got == want
+    assert ops.launches > before  # the relational batches ran bitmm

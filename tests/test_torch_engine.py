@@ -157,7 +157,7 @@ def test_iteration_events_match_reference():
     assert events(tt) and events(tt) == events(jt)
 
 
-@pytest.mark.parametrize("semantics", ["single_path", "conjunctive", "count"])
+@pytest.mark.parametrize("semantics", ["conjunctive", "count"])
 def test_unported_semantics_name_their_roadmap_item(semantics):
     _, tg = _graphs()
     engine = QueryEngine(tg, config=EngineConfig(device="cpu"))

@@ -50,7 +50,10 @@ def test_the_port_has_the_slice_modules():
         "core/closure.py", "core/semantics.py", "baselines/hellings.py",
         "kernels/ref.py", "kernels/bitmm.py", "kernels/ops.py",
         "obs/trace.py", "obs/metrics.py", "obs/instruments.py",
+        "obs/export.py", "obs/chrome.py",
         "delta/txn.py", "delta/repair.py", "engine/stats.py", "engine/config.py",
         "engine/plan.py", "engine/planner.py", "engine/service.py",
+        "serve/config.py", "serve/coalesce.py", "serve/server.py",
+        "serve/loadgen.py", "serve/__init__.py",
     } <= names
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitmm.cu").exists()
