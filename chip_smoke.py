@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py [--baseline-cu OTHER_REVISION/src/repro_torch/kernels/csrc/bitmm.cu]
 
-Builds the port's hand-written CUDA kernels (``bitmm`` and ``bitmm_or``)
-from this checkout and fails if ptxas reports a spill in any template
-instance; holds each kernel against its plain torch version on the card,
-through its compiled-in path threshold and with each of its two paths
-(sparse row gather, staged dense tiles) forced; drives the port's main
+Builds the port's hand-written CUDA kernels (``bitmm`` and ``bitmm_or``
+from csrc/bitmm.cu, the block-sparse backend's ``tile_contract`` from
+csrc/tile_bitmm.cu; one nvcc per source, started together) from this
+checkout and fails if ptxas reports a spill in any template instance;
+holds each kernel against its plain torch version on the card (``bitmm``
+and ``bitmm_or`` through their compiled-in path threshold and with each of
+their two paths, sparse row gather and staged dense tiles, forced;
+``tile_contract`` on buckets of 1, 7 and 512 tile pairs at B = 32, 64 and
+128); drives the port's main
 path (relational CFPQ served by ``repro_torch.engine.QueryEngine``) at
 full size — ``paper_table_graph("pizza").repeat(16)``, 15,856 nodes padded
 to n = 15,872, with Query 1 in CNF — and checks every answer against the
@@ -21,6 +25,14 @@ checked against Hellings and by a CYK check of each witness (its length
 equal to its entry of the length state), the host mirror of the 7 GB
 length state against the device, a seeded edit of copy 0 repaired in
 place; the dense phase also times one min-plus product against its bound.
+The block-sparse backend: the engine pinned to ``blocksparse`` (and
+``auto``) through all-pairs, the 256-source batch and a seeded edit at the
+main path's size, checked against Hellings and a bitpacked engine's
+state; then ``blocksparse_closure_state`` at a million nodes (pizza x
+1024, n = 1,014,784; the dense tensor never exists), its S tiles checked
+against Hellings on one copy, shifted, with the tile launches' device
+time beside the wall time; the tile kernel on that run's slot store and
+timed at its bucket shape.
 Then ``serve_open_loop``: 512 requests at 200 offered queries/s through
 ``repro_torch.serve.CFPQServer`` with a fenced write halfway, every
 answer checked against Hellings at the epoch it reports.  Last, the
@@ -174,21 +186,54 @@ def ptxas_instances(log: str) -> list[dict]:
     return found
 
 
-def phase_build() -> None:
-    from repro_torch.kernels import bitmm as kbitmm
+def tile_instances(log: str) -> list[dict]:
+    """Registers and spills of each instance ``tile_contract_kernel<B>`` of
+    the block-sparse tile kernel, from ``nvcc -Xptxas -v``."""
+    found, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*tile_contract_kernelILi(\d+)E", ln)
+        if m:
+            name = f"tile_contract_kernel<{m.group(1)}>"
+            found.append({"instance": name})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            found[-1].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            found[-1]["registers"] = int(m.group(1))
+            name = None
+    return found
 
-    kbitmm.library()  # one source, one nvcc: both kernels' entry points
-    instances = ptxas_instances(kbitmm.BUILD_INFO["log"])
+
+def phase_build() -> None:
+    """Both kernel sources, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import bitmm as kbitmm
+    from repro_torch.kernels import tile_bitmm as ktile
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        (_, info), (_, tinfo) = pool.map(kbitmm.load, (kbitmm.SOURCE, ktile.SOURCE),
+                                         (kbitmm.ENTRIES, ktile.ENTRIES))
+    wall_s = time.perf_counter() - t0
+    instances = ptxas_instances(info["log"])
+    tinstances = tile_instances(tinfo["log"])
     emit(
-        "build", kernels=["bitmm", "bitmm_or"],
-        seconds=kbitmm.BUILD_INFO["seconds"],
-        library=Path(kbitmm.BUILD_INFO["path"]).name,
+        "build", kernels=["bitmm", "bitmm_or", "tile_contract"], wall_s=wall_s,
+        seconds={"bitmm": info["seconds"], "tile_bitmm": tinfo["seconds"]},
+        library=[Path(info["path"]).name, Path(tinfo["path"]).name],
         sparse_max_bits=kbitmm.sparse_max_bits(), instances=instances,
-        ptxas=[ln for ln in kbitmm.BUILD_INFO["log"].splitlines() if ln],
+        tile_instances=tinstances,
+        ptxas=[ln for ln in (info["log"] + "\n" + tinfo["log"]).splitlines() if ln],
     )
     check(len(instances) == 6, f"ptxas reported {len(instances)} kernel "
           "instances, want 6 (2 kernels x 3 row layouts)")
-    for inst in instances:
+    check(len(tinstances) == 3, f"ptxas reported {len(tinstances)} tile kernel "
+          "instances, want 3 (B = 32, 64, 128)")
+    for inst in instances + tinstances:
         check(inst.get("spill_stores") == 0 and inst.get("spill_loads") == 0,
               f"ptxas reports spills in {inst}")
 
@@ -407,20 +452,44 @@ def shifted_oracle() -> set[tuple[int, int]]:
     return {(i + t * off, j + t * off) for t in range(PIZZA_COPIES) for i, j in rel}
 
 
-def run_phase(fn):
-    """Run ``fn`` with the kernel counts at 0 and the peak memory reset;
-    returns (result, wall ms, ``{"bitmm": .., "bitmm_or": ..}`` launches in
-    the run)."""
+def reset_launches() -> None:
     from repro_torch.kernels import ops
 
-    ops.launches = ops.or_launches = 0
+    ops.launches = ops.or_launches = ops.tile_launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import ops
+
+    return {"bitmm": ops.launches, "bitmm_or": ops.or_launches,
+            "tile_contract": ops.tile_launches}
+
+
+def run_phase(fn):
+    """Run ``fn`` with the kernel counts at 0 and the peak memory reset;
+    returns (result, wall ms, ``{"bitmm": .., "bitmm_or": ..,
+    "tile_contract": ..}`` launches in the run)."""
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    return out, wall_ms, {"bitmm": ops.launches, "bitmm_or": ops.or_launches}
+    return out, wall_ms, read_launches()
+
+
+#: the kernel each backend's closure launches (dense and frontier: none)
+ROUTE_KERNEL = {"bitpacked": "bitmm", "blocksparse": "tile_contract"}
+
+
+def check_route_launched(route: str, launches: dict, what: str) -> None:
+    """A closure routed to ``route`` (a backend or a planner label) must
+    have launched that backend's hand-written kernel in the run."""
+    kernel = ROUTE_KERNEL.get(route.split(":")[0])
+    if kernel is not None:
+        check(launches[kernel] > 0, f"{what}: routed to {route} but {kernel} "
+              f"never launched ({launches})")
 
 
 def closure_calls(engine) -> int:
@@ -500,10 +569,14 @@ def phase_main_path(dev):
         for s, out in zip(sources, outs):
             check(out.pairs == want[s], f"{backend} batch source {s} differs")
         launches[f"batch_{backend}"] = n_launch
+        route = outs[0].stats.planner["label"]
+        served = (outs[0].stats.fallback or {}).get("to", route)
+        check_route_launched(served, counts, f"batch_{backend}")
         if backend == "bitpacked":
             check(n_launch > 0, "bitpacked batch never launched bitmm")
         report(f"batch_{backend}", eng, ms, n_launch, queries=len(batch),
-               route=outs[0].stats.planner["label"],
+               route=route, served_by=outs[0].stats["engine"],
+               tile_launches=counts["tile_contract"],
                pairs=sum(len(o.pairs) for o in outs))
         del eng, outs
 
@@ -634,7 +707,7 @@ def baseline_device_ms(base, lhs, rhs, acc, want, reps: int) -> float:
 SWEEP_DENSITIES = (1e-4, 1e-3, 1e-2, 0.05, 0.1, 0.2, 0.3, 0.5)
 
 
-def phase_kernel_timing(T, tables, launches, repair, base=None) -> None:
+def phase_kernel_timing(T, tables, launches, repair, base=None) -> list[dict]:
     """Time bitmm, its plain version and the library yardstick at the main
     path's shapes: on the main path's own final state (all-pairs R = n and
     a masked R = 128 block), and on random words (every bit set with
@@ -647,7 +720,8 @@ def phase_kernel_timing(T, tables, launches, repair, base=None) -> None:
     library, that revision's device time).  Last, the density sweep: random lhs words at
     each density in SWEEP_DENSITIES at bitmm_or's shape against the state,
     timed on both paths and the library call — where the paths cross is
-    the compiled-in threshold's reason."""
+    the compiled-in threshold's reason.  Returns the two kernels' rows of
+    the ``kernels`` summary."""
     from repro_torch.core.matrices import pack_bits, unpack_bits
     from repro_torch.kernels import bitmm as kbitmm
     from repro_torch.kernels import ops, ref
@@ -767,7 +841,7 @@ def phase_kernel_timing(T, tables, launches, repair, base=None) -> None:
     del state_bmat, flush
 
     main = rows[0]
-    summary = {"kernels": [{
+    return [{
         "name": "bitmm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitmm.cu",
@@ -795,8 +869,7 @@ def phase_kernel_timing(T, tables, launches, repair, base=None) -> None:
         "library_ms": or_library_ms,
         "ms_device": or_row["ms_device"],
         "ms_cold_l2": or_row["ms_cold_l2"],
-    }]}
-    print(json.dumps(summary), flush=True)
+    }]
 
 
 DELTA_ROUNDS = 2  # interleaved rounds of edits and queries after the first
@@ -918,6 +991,12 @@ def phase_delta(dev):
             keys = [k for k in eng.plans._exe if k.repair]
             repair_info = {"R": max(k.row_capacity for k in keys),
                            "launches": n_launch["bitmm_or"]}
+        for r in repairs:  # a packed repair launches bitmm_or, a tiled one tiles
+            kernel = {"bitpacked": "bitmm_or",
+                      "blocksparse": "tile_contract"}.get(r.attrs["engine"])
+            if kernel is not None:
+                check(n_launch[kernel] > 0, f"delta_{backend}: the "
+                      f"{r.attrs['engine']} repair never launched {kernel}")
         res, fresh_ms, full_copy_ms = verify("after the delta")
         emit(
             f"delta_{backend}", edits={"delete": len(delete), "insert": len(insert)},
@@ -961,6 +1040,468 @@ def phase_delta(dev):
         del eng, state, warm_frozen, res
         torch.cuda.empty_cache()
     return repair_info
+
+
+# ---------------------------------------------------------------------- #
+# the block-sparse backend: its tile kernel, the engine pinned to it at
+# full width, and the standalone closure at a million nodes
+# ---------------------------------------------------------------------- #
+
+TILE_DENSITIES = (1e-3, 0.05, 0.5, 1.0)
+TILE_PAIRS = ((1, 1), (7, 3), (512, 64))  # (pairs, output blocks) per bucket
+SCALE_COPIES = 1024  # pizza copies of the standalone closure: n = 1,014,784
+
+
+def tile_bucket(gen, store, p: int, n_out: int):
+    """One bucket of ``p`` pairs over the slots of ``store``: segments over
+    ``n_out`` output blocks (repeated), the last quarter pad pairs (segment
+    ``n_out``), and old tiles in ``out`` for about half of the outputs (the
+    tile of a random slot), zeros for the rest."""
+    dev = store.device
+    S = store.shape[0]
+
+    def ints(high, size):
+        return torch.randint(0, high, (size,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    l_idx, r_idx, seg = ints(S, p), ints(S, p), ints(n_out, p)
+    seg[p - p // 4:] = n_out
+    exists = torch.rand(n_out, generator=gen, device=dev) < 0.5
+    old = torch.where(exists[:, None, None], store[ints(S, n_out).long()], 0)
+    return l_idx, r_idx, seg, old
+
+
+def held_tile(store, l_idx, r_idx, seg, old, what: str) -> int:
+    """ops.tile_contract word-equal to old | tile_contract_ref; returns the
+    largest absolute difference of the words (0)."""
+    from repro_torch.kernels import ops, ref
+
+    want = old | ref.tile_contract_ref(store, l_idx, r_idx, seg, old.shape[0])
+    got = old.clone()
+    fault = ops.tile_contract(store, l_idx, r_idx, seg, got)
+    check(fault.tolist() == [0], f"tile_contract flagged a pair out of range on {what}")
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0 and torch.equal(got, want),
+          f"tile_contract != its plain version on {what}")
+    return err
+
+
+def phase_tile_checks(dev, state=None) -> int:
+    """The tile kernel against its plain version, word for word: B = 32,
+    64 and 128; 1, 7 and 512 pairs with repeated output blocks, pad pairs
+    and outputs with and without an old tile; random stores at densities
+    1e-3 to every bit set, or (``state``) the real slot store of the scale
+    phase; and ``tile_bitmm`` against ``bitmm_ref``."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = []
+    if state is None:
+        for B in (32, 64, 128):
+            for d in TILE_DENSITIES:
+                store = random_words(gen, (600, B, B // 32), d, dev)
+                for p, n_out in TILE_PAIRS:
+                    cases.append((f"B={B} d={d} pairs={p}", store, p, n_out))
+    else:
+        store = state.tiles[: state.n_slots]
+        for p, n_out in TILE_PAIRS:
+            cases.append((f"the scale phase's store, pairs={p}", store, p, n_out))
+    err = 0
+    for name, store, p, n_out in cases:
+        err = max(err, held_tile(store, *tile_bucket(gen, store, p, n_out), name))
+    bitmm_cases = 0
+    if state is None:
+        for B in (32, 64, 128):
+            lhs = random_words(gen, (512, B, B // 32), 0.1, dev)
+            rhs = random_words(gen, (512, B, B // 32), 0.1, dev)
+            check(torch.equal(ops.tile_bitmm(lhs, rhs), ref.bitmm_ref(lhs, rhs)),
+                  f"tile_bitmm != bitmm_ref at B={B}")
+            bitmm_cases += 1
+    torch.cuda.synchronize()
+    emit("tile_checks", kernel="tile_contract",
+         store="random" if state is None else "blocksparse_scale",
+         cases=len(cases), tile_bitmm_cases=bitmm_cases, max_abs_err=err,
+         tolerance="exact word equality (torch.equal)")
+    return err
+
+
+class TileProbe:
+    """For the duration of a ``with``: counts the block-sparse fixpoint's
+    iterations, chunks and contracted pairs, times ``from_graph``, and
+    brackets each tile-kernel launch with two CUDA events, by wrapping the
+    module functions the fixpoint calls.  The events bracket the C launch
+    call alone, not the wrapper's checks and allocations; each chunk syncs
+    the host before the next, so the device is idle when the first event
+    is recorded and each interval is the launch's enqueue latency plus the
+    kernel.  ``device_ms``, their sum, is thus an upper bound of the
+    launches' device time."""
+
+    def __enter__(self):
+        from repro_torch.core import blocksparse as tbs
+        from repro_torch.kernels import tile_bitmm as ktile
+
+        self.iterations = self.chunks = self.pairs = 0
+        self.from_graph_s = 0.0
+        self._events = []
+        self._saved = (tbs._chunk_operands, ktile._launch,
+                       tbs._blocksparse_fixpoint,
+                       tbs.BlockSparseState.__dict__["from_graph"])
+        operands, launch, fixpoint, from_graph = self._saved
+
+        def chunk_operands(state, chunk, device):
+            self.chunks += 1
+            self.pairs += len(chunk)
+            return operands(state, chunk, device)
+
+        def timed_launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(*args)
+            end.record()
+            self._events.append((start, end))
+
+        def counting_fixpoint(*args):
+            *rest, hook = args  # every caller passes all nine positionally
+
+            def count(*event):
+                self.iterations += 1
+                if hook is not None:
+                    hook(*event)
+
+            return fixpoint(*rest, count)
+
+        def timed_from_graph(cls, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = from_graph.__func__(cls, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.from_graph_s += time.perf_counter() - t0
+            return out
+
+        tbs._chunk_operands = chunk_operands
+        ktile._launch = timed_launch
+        tbs._blocksparse_fixpoint = counting_fixpoint
+        tbs.BlockSparseState.from_graph = classmethod(timed_from_graph)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import blocksparse as tbs
+        from repro_torch.kernels import tile_bitmm as ktile
+
+        (tbs._chunk_operands, ktile._launch, tbs._blocksparse_fixpoint,
+         tbs.BlockSparseState.from_graph) = self._saved
+        torch.cuda.synchronize()
+        self.device_ms = sum(s.elapsed_time(e) for s, e in self._events)
+        return False
+
+
+def phase_blocksparse_engine(dev) -> int:
+    """The engine pinned to ``blocksparse`` at the main path's size (pizza
+    x 16, Query 1), and ``auto`` through the same three calls: all-pairs,
+    the 256-source batch, and ``apply_delta`` of the delta phase's first
+    seeded edits on the warm all-pairs state.  Checked: pairs against
+    Hellings; the Boolean state under the mask bit-equal to a pinned
+    bitpacked engine's all-pairs closure of the same graph (before and
+    after the edit); the host copy equal to the device state; rows of the
+    unedited copies bit-identical across the edit; every call of the
+    pinned engine launched the tile kernel, every call of ``auto`` the
+    kernel of its route.  Returns the pinned engine's tile launches."""
+    from repro_torch.core.blocksparse import occupied_block_count
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import paper_table_graph
+    from repro_torch.engine import EngineConfig, Query, QueryEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    g = query1_grammar().to_cnf()
+    off = paper_table_graph("pizza").n_nodes
+    oracle = shifted_oracle()
+
+    def pizza():
+        return paper_table_graph("pizza").repeat(PIZZA_COPIES)
+
+    def engine_of(graph, name):
+        return QueryEngine(
+            graph, config=EngineConfig(engine=name, device=str(dev)),
+            metrics=MetricsRegistry(), tracer=Tracer(iteration_events=False),
+        )
+
+    sources = np.random.default_rng(0).choice(
+        pizza().n_nodes, size=256, replace=False).tolist()
+    edited = pizza()
+    delete, insert = _seeded_edits(np.random.default_rng(7), edited, g, off)
+    edited.delete_edges(delete)
+    edited.insert_edges(insert)
+    after = set(oracle) - {p for p in oracle if p[0] < 2 * off}
+    after |= _copy_oracle(edited, g, 0, off) | _copy_oracle(edited, g, 1, off)
+    exact = {}
+    for label, graph in (("before", pizza()), ("after", edited)):
+        bp = engine_of(graph, "bitpacked")
+        bp.query(Query(g, "S"))
+        (st,) = bp._states.values()
+        exact[label] = st.T_host
+        del bp, st
+    frozen_rows = np.arange(2 * off, PIZZA_COPIES * off)
+
+    def state_checks(eng, label, what):
+        (st,) = eng._states.values()
+        M = st.mask
+        check(np.array_equal(st.T_host[:, M, :], exact[label][:, M, :]),
+              f"{what}: rows under the mask != the bitpacked engine's closure")
+        check(torch.equal(st.T.cpu(), torch.from_numpy(st.T_host)),
+              f"{what}: host copy != device state")
+        return st
+
+    def measure(eng, fn, what, check_result):
+        first = len(eng.tracer.spans)
+        with TileProbe() as probe:
+            out, ms, launches = run_phase(fn)
+        peak = torch.cuda.max_memory_allocated()
+        spans = [s for s in eng.tracer.spans[first:] if s.name == "closure.execute"]
+        routes = check_result(out)
+        for route in routes:
+            check_route_launched(route, launches, what)
+        (st,) = eng._states.values()
+        return {
+            "wall_ms": ms, "closure_execute_ms": span_ms(eng.tracer, first,
+                                                         "closure.execute"),
+            "closure_calls": sum(s.attrs.get("calls", 0) for s in spans),
+            "closure_engine": [s.attrs["engine"] for s in spans],
+            "route": routes, "occupied_blocks": occupied_block_count(st.T, 128),
+            "chunks": probe.chunks, "pairs_contracted": probe.pairs,
+            "iterations": probe.iterations, "tile_device_ms": probe.device_ms,
+            "launches": launches, "max_memory_allocated": peak,
+        }
+
+    pinned_launches = 0
+    for name in ("blocksparse", "auto"):
+        calls = {}
+        eng = engine_of(pizza(), name)
+
+        def allpairs(res):
+            check(res.pairs == oracle, f"blocksparse_engine {name}: all-pairs "
+                  "!= shifted Hellings")
+            return [res.stats.planner["label"]]
+
+        calls["allpairs"] = measure(eng, lambda: eng.query(Query(g, "S")),
+                                    f"blocksparse_engine {name} all-pairs", allpairs)
+        calls["allpairs"]["pairs"] = len(oracle)
+        state_checks(eng, "before", f"blocksparse_engine {name} all-pairs")
+        (st,) = eng._states.values()
+        keep = st.T_host[:, frozen_rows, :].copy()
+
+        batch_eng = engine_of(pizza(), name)
+
+        def batch(outs):
+            for s, out in zip(sources, outs):
+                check(out.pairs == {p for p in oracle if p[0] == s},
+                      f"blocksparse_engine {name} batch: source {s} != Hellings")
+            return [outs[0].stats.planner["label"]]
+
+        calls["batch"] = measure(
+            batch_eng, lambda: batch_eng.query_batch(
+                [Query(g, "S", sources=(int(s),)) for s in sources]),
+            f"blocksparse_engine {name} batch", batch)
+        state_checks(batch_eng, "before", f"blocksparse_engine {name} batch")
+        del batch_eng
+
+        def delta(st_delta):
+            spans = [s for s in eng.tracer.spans if s.name == "closure.execute"
+                     and s.attrs.get("repair")]
+            check(st_delta.rows_repaired > 0 and st_delta.rows_evicted > 0,
+                  f"blocksparse_engine {name}: the delta did nothing: {st_delta}")
+            return [spans[-1].attrs["engine"]]
+
+        calls["apply_delta"] = measure(
+            eng, lambda: eng.apply_delta(insert=insert, delete=delete),
+            f"blocksparse_engine {name} apply_delta", delta)
+        st = state_checks(eng, "after", f"blocksparse_engine {name} apply_delta")
+        check(np.array_equal(st.T_host[:, frozen_rows, :], keep),
+              f"blocksparse_engine {name}: rows of unedited copies changed")
+        res = eng.query(Query(g, "S"))
+        check(res.pairs == after, f"blocksparse_engine {name}: pairs after "
+              "the edit != Hellings")
+        if name == "blocksparse":
+            for label, c in calls.items():
+                check(c["launches"]["tile_contract"] > 0,
+                      f"blocksparse_engine: {label} never launched tile_contract")
+            pinned_launches = sum(c["launches"]["tile_contract"]
+                                  for c in calls.values())
+        emit("blocksparse_engine", engine=name, n=eng.n, sources=len(sources),
+             edits={"delete": len(delete), "insert": len(insert)}, calls=calls)
+        del eng, st, keep, res
+        torch.cuda.empty_cache()
+    return pinned_launches
+
+
+def phase_blocksparse_scale(dev):
+    """The standalone closure over the compacted state at a million nodes:
+    ``blocksparse_closure_state`` on pizza x SCALE_COPIES with Query 1,
+    all-pairs, tile 128; the dense tensor never exists.  Checked: the S
+    tiles of every copy equal tiles built from Hellings on one copy,
+    shifted, block for block.  Returns the state."""
+    from repro_torch.baselines.hellings import hellings_cfpq
+    from repro_torch.core.blocksparse import blocksparse_closure_state
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import paper_table_graph
+
+    g = query1_grammar().to_cnf()
+    base = paper_table_graph("pizza")
+    off = base.n_nodes
+    t0 = time.perf_counter()
+    graph = base.repeat(SCALE_COPIES)
+    graph_s = time.perf_counter() - t0
+    rel = np.array(sorted(hellings_cfpq(base, g)["S"]), dtype=np.int64)
+    check(len(rel) == PIZZA_S_PAIRS, f"Hellings gives {len(rel)} S-pairs")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with TileProbe() as probe:
+        t0 = time.perf_counter()
+        state = blocksparse_closure_state(graph, g, tile=128, device=dev)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["tile_contract"] > 0, "blocksparse_scale never launched "
+          "tile_contract")
+
+    # the S relation of every copy, block for block, without densifying
+    B, G, W = state.tile, state.grid, state.tile // 32
+    a = g.index_of("S")
+    shift = (np.arange(SCALE_COPIES, dtype=np.int64) * off)[:, None]
+    i = (rel[:, 0][None, :] + shift).ravel()
+    j = (rel[:, 1][None, :] + shift).ravel()
+    keys, slot = np.unique((i // B) * G + j // B, return_inverse=True)
+    words = np.zeros(len(keys) * B * W, dtype=np.uint32)
+    np.bitwise_or.at(words, (slot * B + i % B) * W + (j % B) // 32,
+                     np.left_shift(np.uint32(1), (j % 32).astype(np.uint32)))
+    have = sorted(rb * G + cb for rb, row in state.index[a].items() for cb in row)
+    check(have == keys.tolist(), f"blocksparse_scale: {len(have)} S blocks, "
+          f"Hellings needs {len(keys)}")
+    slots = torch.tensor([state.index[a][int(k) // G][int(k) % G] for k in keys],
+                         dtype=torch.int64, device=dev)
+    want = torch.from_numpy(words.view(np.int32)).view(-1, B, W).to(dev)
+    check(torch.equal(state.tiles[slots], want),
+          "blocksparse_scale: S tiles != shifted Hellings")
+    closure_s = total_s - probe.from_graph_s
+    emit("blocksparse_scale", copies=SCALE_COPIES, nodes=graph.n_nodes,
+         edges=len(graph.edges), n=state.n, tile=B, grid=G,
+         graph_build_s=graph_s, from_graph_s=probe.from_graph_s,
+         closure_s=closure_s, total_s=total_s, occupied_blocks=state.occupied,
+         state_mb=state.nbytes() / 2**20,
+         store_mb=state.tiles.numel() * 4 / 2**20,
+         dense_bool_tb=state.n_nonterms * state.n**2 / 1e12,
+         iterations=probe.iterations, pairs_contracted=probe.pairs,
+         chunks=probe.chunks, launches=launches,
+         tile_device_ms=probe.device_ms,
+         host_share_of_closure=1 - probe.device_ms / (1e3 * closure_s),
+         s_pairs_checked=len(i), s_blocks=len(keys),
+         max_memory_allocated=peak, memory_allocated_before=before,
+         phase_peak_bytes=peak - before)
+    return state
+
+
+def first_bucket(state, tables):
+    """The first PAIR_CHUNK occupied (lhs, rhs, output block) pairs of the
+    closed ``state`` in the fixpoint's enumeration order (all row-blocks
+    active, every slot on the frontier)."""
+    from repro_torch.core.blocksparse import PAIR_CHUNK
+
+    pairs = []
+    for a, b, c in zip(tables.a_idx, tables.b_idx, tables.c_idx):
+        for rb, row in state.index[b].items():
+            for kb, ls in row.items():
+                for cb, rs in state.index[c].get(kb, {}).items():
+                    pairs.append((ls, rs, (a, rb, cb)))
+                    if len(pairs) == PAIR_CHUNK:
+                        return pairs
+    return pairs
+
+
+def tile_bound(tiles, l_idx, r_idx, n_out: int) -> dict:
+    """Least time of the tile contraction of the pairs ``(l_idx[i],
+    r_idx[i])`` into ``n_out`` output blocks, counting only what these
+    inputs need: bytes = each distinct slot named read once (one store
+    serves both sides; of a slot named only as an rhs, only the rows that
+    some set bit of its pairs' lhs tiles needs) and each output block read
+    and written once, over HBM; operations = one OR of a W-word rhs row per
+    set lhs bit, over the INT32 rate."""
+    from repro_torch.core.matrices import unpack_bits
+
+    B, W = tiles.shape[1:]
+    lhs_bits = unpack_bits(tiles[l_idx.long()], B)  # (p, B rows, B columns)
+    set_bits = int(lhs_bits.sum())
+    lhs_slots = torch.unique(l_idx)
+    rhs_slots, rhs_of = torch.unique(r_idx, return_inverse=True)
+    needed = torch.zeros((len(rhs_slots), B), dtype=torch.uint8, device=tiles.device)
+    needed.scatter_reduce_(0, rhs_of[:, None].expand(-1, B),
+                           lhs_bits.any(1).to(torch.uint8), "amax")
+    rhs_only = ~torch.isin(rhs_slots, lhs_slots)
+    rhs_rows = int(needed[rhs_only].sum())
+    words = (len(lhs_slots) * B + rhs_rows + 2 * n_out * B) * W
+    bytes_ms = 4 * words / HBM_BYTES_PER_S * 1e3
+    ops_ms = set_bits * W / INT32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "lhs_set_bits": set_bits, "distinct_lhs_slots": len(lhs_slots),
+        "distinct_rhs_only_slots": int(rhs_only.sum()), "rhs_only_rows": rhs_rows,
+        "bound_words": words,
+    }
+
+
+def tile_timing(state, launches: int, err: int) -> dict:
+    """The tile kernel at the main path's bucket shape (512 pairs of
+    (128, 4)-word tiles) on the real store of the scale phase: one call
+    (``ms``, the wrapper's host work included), device time, the plain
+    version, and one bf16 ``torch.bmm`` of the unpacked gathered tiles
+    (the product only) as the library yardstick; the bound is the larger
+    of the bytes at HBM rate and one OR of a W-word rhs row per set lhs bit
+    at the INT32 rate.  The bytes count only what the bucket needs: each
+    distinct slot it names read once (one store serves both sides; of a
+    slot named only as an rhs, only the rows some set bit of its pairs'
+    lhs tiles needs), and one read and one write of each output block."""
+    from repro_torch.core import blocksparse as tbs
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.matrices import ProductionTables, unpack_bits
+    from repro_torch.kernels import ops, ref
+
+    tables = ProductionTables.from_grammar(query1_grammar().to_cnf())
+    pairs = first_bucket(state, tables)
+    out_keys, _, _, l_idx, r_idx, seg, out_slot, exists = tbs._chunk_operands(
+        state, pairs, state.tiles.device)
+    tiles = state.tiles
+    old = torch.where(exists[:, None, None], tiles[out_slot.long()], 0)
+    buf = old.clone()
+    held_tile(tiles, l_idx, r_idx, seg, old, "the timed bucket")
+
+    def run():
+        return ops.tile_contract(tiles, l_idx, r_idx, seg, buf)
+
+    B = tiles.shape[1]
+    p, n_out = len(pairs), len(out_keys)
+    bnd = tile_bound(tiles, l_idx[:p], r_idx[:p], n_out)
+    a = unpack_bits(tiles[l_idx[:p].long()], B).to(torch.bfloat16)
+    b = unpack_bits(tiles[r_idx[:p].long()], B).to(torch.bfloat16)
+    row = {
+        "name": "tile_contract", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tile_bitmm.cu",
+        "replaces": "src/repro/kernels/ops.py:54",
+        "launches": launches, "max_abs_err": err,
+        "ms": time_ms(run, reps=20, warmup=3),
+        "plain_ms": time_ms(lambda: old | ref.tile_contract_ref(
+            tiles, l_idx, r_idx, seg, old.shape[0]), reps=5),
+        "bound_ms": bnd.pop("bound_ms"), "bound_by": bnd.pop("bound_by"),
+        "library_ms": time_ms(lambda: torch.bmm(a, b), reps=20, warmup=3),
+        "ms_device": device_ms(run, reps=50),
+        "pairs": p, "output_blocks": n_out, "tile": list(tiles.shape[1:]), **bnd,
+    }
+    del a, b
+    emit("tile_timing", **row)
+    return row
 
 
 # ---------------------------------------------------------------------- #
@@ -1203,7 +1744,6 @@ def phase_serve(dev) -> None:
     from repro_torch.core.grammar import query1_grammar, query2_grammar
     from repro_torch.core.graph import paper_table_graph
     from repro_torch.engine import EngineConfig, Query, QueryEngine
-    from repro_torch.kernels import ops
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.serve import CFPQServer, Overloaded, ServeConfig, poisson_arrivals
 
@@ -1247,15 +1787,25 @@ def phase_serve(dev) -> None:
     write = {}
     inner_apply = eng.apply_delta
 
+    def closure_calls_by_engine():
+        return {c.labels["engine"]: c.value
+                for c in eng.metrics.closure_calls.children}
+
     def apply_delta(insert, delete):
         # the writer's engine call: runs in the server's worker after the
-        # fence; keeps copy 0's S-plane lengths of the old epoch
+        # fence (no batch runs beside it); keeps copy 0's S-plane lengths
+        # of the old epoch, and which backends ran the repair closures and
+        # what they launched
         (st,) = [s for s in eng._states.values() if s.sp_L is not None]
         write["old_L"] = st.sp_L_host[a0, :off, :].copy()
+        calls0, launches0 = closure_calls_by_engine(), read_launches()
         t0 = time.perf_counter()
         out = inner_apply(insert=insert, delete=delete)
         torch.cuda.synchronize()
         write["apply_delta_ms"] = (time.perf_counter() - t0) * 1e3
+        write["repair_engines"] = sorted(
+            e for e, v in closure_calls_by_engine().items() if v > calls0.get(e, 0))
+        write["launches"] = {k: v - launches0[k] for k, v in read_launches().items()}
         return out
 
     eng.apply_delta = apply_delta
@@ -1293,13 +1843,13 @@ def phase_serve(dev) -> None:
             stats = srv.stats
         return results, shed, stats
 
-    ops.launches = ops.or_launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results, shed, stats = asyncio.run(asyncio.wait_for(main(), 900))
     wall_s = time.perf_counter() - t0
-    launches = {"bitmm": ops.launches, "bitmm_or": ops.or_launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     edges[1] = set(graph.edges)
@@ -1349,10 +1899,23 @@ def phase_serve(dev) -> None:
          flushes=stats.flushes, planner_routes=stats.planner_routes,
          fallbacks=stats.fallbacks, launches=launches,
          write_ms=write["write_ms"], apply_delta_ms=write["apply_delta_ms"],
+         repair_engines=write["repair_engines"], write_launches=write["launches"],
          fence_ms=write["write_ms"] - write["apply_delta_ms"],
          delta=write["stats"].as_dict(), max_memory_allocated=peak, n=graph.n_nodes)
-    check(launches["bitmm"] > 0, "serve_open_loop never launched bitmm")
-    check(launches["bitmm_or"] > 0, "serve_open_loop never launched bitmm_or")
+    # every route taken must have launched its kernel: the planner's routes
+    # and the fallbacks' targets (relational batches), and the repair
+    # closures of the write (a packed repair launches bitmm_or)
+    served_by = {r.stats["engine"] for r in served
+                 if r.stats.planner is not None and r.query.semantics == "relational"}
+    for route in set(stats.planner_routes) | served_by:
+        check_route_launched(route, launches, "serve_open_loop")
+    for route in write["repair_engines"]:
+        kernel = {"bitpacked": "bitmm_or", "blocksparse": "tile_contract"}.get(route)
+        if kernel is not None:
+            check(write["launches"][kernel] > 0, f"serve_open_loop: the write's "
+                  f"{route} repair never launched {kernel} ({write['launches']})")
+    check(sum(launches.values()) > 0,
+          "serve_open_loop launched no hand-written kernel")
     del eng, sp_state, new_L
     torch.cuda.empty_cache()
 
@@ -1378,12 +1941,20 @@ def main() -> None:
         base, _ = kbitmm.load(args.baseline_cu.resolve())
     phase_kernel_checks(dev)
     phase_bitmm_or_checks(dev)
+    tile_err = phase_tile_checks(dev)
     T, tables, launches = phase_main_path(dev)
     repair = phase_delta(dev)
+    tile_launches = phase_blocksparse_engine(dev)
+    state = phase_blocksparse_scale(dev)
+    tile_err = max(tile_err, phase_tile_checks(dev, state))
+    tile_row = tile_timing(state, tile_launches, tile_err)
+    del state
+    torch.cuda.empty_cache()
     for backend in ("dense", "frontier", "auto"):
         phase_single_path(dev, backend, time_minplus=backend == "dense")
     phase_serve(dev)
-    phase_kernel_timing(T, tables, launches, repair, base)
+    kernels = phase_kernel_timing(T, tables, launches, repair, base)
+    print(json.dumps({"kernels": kernels + [tile_row]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
 
 

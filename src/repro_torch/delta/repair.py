@@ -28,6 +28,17 @@ length annotation too, which keeps extracted witnesses valid); eviction is
 conservative, never wrong.  Both sweeps run on the union of
 the pre- and post-delta edge sets, one adjacency for both directions.
 
+Block-sparse states (``engine="blocksparse"``) ride the same surgery with
+mixed granularity: this module's seed/ancestor/eviction computation stays
+*row*-level (strictly finer than blocks — evicting or re-seeding a row is
+always sound), while the repair closure it dispatches to
+(``core/blocksparse.py``) runs *block*-granular — an insertion reactivates
+the bit-tiles its seed rows touch, expansion skips fully-frozen tiles, and
+frozen rows inside a reactivated tile stay bit-identical because the OR of
+recomputed entries (a subset of the exact closure) into an already-exact
+frozen row is a no-op.  Every row the block-sparse repair may write is
+under the mask it returns, so the rows-only copy below stays complete.
+
 The port keeps the cached state on its device and a host copy beside it.
 The reference re-reads the whole state after a repair; here only the rows
 the repair may have written — the touched rows and the rows under the

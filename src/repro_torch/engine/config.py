@@ -26,12 +26,18 @@ class EngineConfig:
 
     ``engine``
         ``"auto"`` (default): the planner picks the cheapest closure per
-        call.  ``"dense"`` / ``"frontier"`` / ``"bitpacked"`` pins it.
+        call.  ``"dense"`` / ``"frontier"`` / ``"bitpacked"`` /
+        ``"blocksparse"`` pins it.
     ``device``
         Where states live and closures run: ``"cuda"`` (default; raises on
         a machine without a card) or ``"cpu"``.
     ``row_capacity``
-        Floor of the masked-closure capacity bucket ladder.
+        Floor of the masked-closure capacity bucket ladder.  For the
+        ``blocksparse`` backend the same ladder counts occupied *blocks*.
+    ``tile``
+        Bit-tile edge of the ``blocksparse`` backend (must be a multiple
+        of 32 that divides the padded matrix size; 32/64/128 always do).
+        Ignored by the dense-state backends.
     ``profile``
         Planner cost profile: a :class:`PlannerProfile`, a path to a JSON
         profile, or ``None`` for the defaults (the ``REPRO_PLANNER_PROFILE``
@@ -41,6 +47,7 @@ class EngineConfig:
     engine: str = "auto"
     device: str = "cuda"
     row_capacity: int = 128
+    tile: int = 128
     profile: PlannerProfile | str | Path | None = None
 
     def __post_init__(self) -> None:
@@ -51,6 +58,8 @@ class EngineConfig:
             )
         if self.row_capacity < 1:
             raise ValueError("row_capacity must be >= 1")
+        if self.tile < 32 or self.tile % 32:
+            raise ValueError("tile must be a multiple of 32 (>= 32)")
 
     def resolved_profile(self) -> PlannerProfile:
         if isinstance(self.profile, PlannerProfile):

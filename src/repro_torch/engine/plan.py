@@ -19,10 +19,12 @@ Invariants
   it survives every graph edit and may be shared across engines serving
   different graphs of the same padded size.  The key keeps every field of
   the reference's ``PlanKey``; the port builds single-device keys
-  (``mesh=()``, ``tile=0``) of the relational and single-path semantics,
-  masked or repair (``repair=True``, with ``ctx_capacity`` the
-  contraction-context bucket of the dense/frontier and every single-path
-  repair, 0 for the packed one).
+  (``mesh=()``) of the relational and single-path semantics, masked or
+  repair (``repair=True``, with ``ctx_capacity`` the contraction-context
+  bucket of the dense/frontier and every single-path repair, 0 for the
+  packed and block-sparse ones).  ``tile`` is the bit-tile edge of a
+  block-sparse key (whose ``row_capacity`` then counts occupied blocks),
+  0 for every other backend.
 * **Key aliasing is semantic.**  :func:`sp_engine_name` collapses keys
   exactly where the closure function is shared (bitpacked single-path
   aliases to dense; the one single-path repair keys as dense), so the
@@ -32,16 +34,20 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from repro_torch.core import blocksparse as _blocksparse
 from repro_torch.core import closure as _closure
 from repro_torch.core import semantics as _semantics
 from repro_torch.core.matrices import ProductionTables
 from repro_torch.obs.trace import emit_iteration
 
-#: masked (source-restricted) closure per backend — the serving fast path
+#: masked (source-restricted) closure per backend — the serving fast path.
+#: ``blocksparse`` is the tiled occupied-block engine (core/blocksparse.py):
+#: host-driven, its capacity counts occupied blocks.
 MASKED_ENGINES = {
     "dense": _closure.masked_closure,
     "frontier": _closure.masked_frontier_closure,
     "bitpacked": _closure.masked_bitpacked_closure,
+    "blocksparse": _blocksparse.masked_blocksparse_closure,
 }
 
 #: repair closure per backend — delta ingestion (frozen-row warm restart;
@@ -50,6 +56,7 @@ REPAIR_ENGINES = {
     "dense": _closure.masked_repair_closure,
     "frontier": _closure.masked_repair_closure,
     "bitpacked": _closure.masked_bitpacked_repair_closure,
+    "blocksparse": _blocksparse.masked_blocksparse_repair_closure,
 }
 
 
@@ -64,8 +71,9 @@ SP_ENGINES = {
 
 def sp_engine_name(engine: str, repair: bool = False) -> str:
     """Backend name to key single-path plans under: engines without a
-    length-annotated variant (bitpacked) alias to dense, and the repair
-    variant — one function serves every backend — always keys as dense."""
+    length-annotated variant (bitpacked, blocksparse) alias to dense, and
+    the repair variant — one function serves every backend — always keys
+    as dense."""
     if repair:
         return "dense"
     return engine if engine in SP_ENGINES else "dense"
@@ -179,20 +187,25 @@ class CompiledClosureCache:
 
     @staticmethod
     def _build(key: PlanKey):
+        blocksparse = key.engine == "blocksparse" and key.semantics == "relational"
         if key.semantics not in ("relational", "single_path") or key.mesh \
-                or key.tile:
+                or (key.tile and not blocksparse):
             raise ValueError(
                 "the port serves relational and single-path single-device "
                 f"plans only: {key}"
             )
         single_path = key.semantics == "single_path"
-        hook = emit_iteration if key.instrumented else None
+        kw = {
+            "row_capacity": key.row_capacity,
+            "iter_hook": emit_iteration if key.instrumented else None,
+        }
+        if blocksparse:  # host-driven: capacity counts occupied blocks
+            kw["tile"] = key.tile or _blocksparse.DEFAULT_TILE
         if key.repair:
             fn = (
                 _semantics.masked_single_path_repair_closure
                 if single_path else REPAIR_ENGINES[key.engine]
             )
-            kw = {"row_capacity": key.row_capacity, "iter_hook": hook}
             if key.ctx_capacity:  # dense/frontier compact the contraction
                 kw["ctx_capacity"] = key.ctx_capacity
 
@@ -203,9 +216,6 @@ class CompiledClosureCache:
         fn = (SP_ENGINES if single_path else MASKED_ENGINES)[key.engine]
 
         def exe(T, src_mask):
-            return fn(
-                T, key.tables, src_mask,
-                row_capacity=key.row_capacity, iter_hook=hook,
-            )
+            return fn(T, key.tables, src_mask, **kw)
 
         return exe

@@ -68,10 +68,6 @@ PROFILE_VERSION = 1
 #: engine config doesn't name one explicitly.
 PROFILE_ENV = "REPRO_PLANNER_PROFILE"
 
-#: default bit-tile edge of the reference's block-sparse backend (its
-#: ``core.blocksparse.DEFAULT_TILE``), for the family's work formula
-_BLOCKSPARSE_TILE = 128
-
 #: default (alpha s/Munit, beta s) per executable family — measured on a
 #: CPU host (interpret-mode kernels); a calibrated profile replaces them.
 _DEFAULT_COEF: dict[str, tuple[float, float]] = {
@@ -271,9 +267,9 @@ def _work_munits(
         # blocks; each block pair is a tile³-bit contraction.  The planner's
         # own pricing (:meth:`Planner._cost`) refines this with measured
         # occupancy — this form exists so calibration can fit the family.
-        work = n_prods * cap * _BLOCKSPARSE_TILE * _BLOCKSPARSE_TILE * (
-            _BLOCKSPARSE_TILE // 32
-        )
+        from repro_torch.core.blocksparse import DEFAULT_TILE
+
+        work = n_prods * cap * DEFAULT_TILE * DEFAULT_TILE * (DEFAULT_TILE // 32)
     else:  # dense / frontier / sp_dense / sp_frontier
         work = n_prods * cap * cap * n
     return work / 1e6

@@ -45,6 +45,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.blocksparse import (
+    occupied_block_count,
+    occupied_blocks_of_edges,
+)
 from repro_torch.core.grammar import CNFGrammar
 from repro_torch.core.graph import Graph
 from repro_torch.core.matrices import (
@@ -437,9 +441,10 @@ class QueryEngine:
         repair: bool = False,
     ) -> PlanDecision:
         """Build the planner features for one closure call and decide.  The
-        port has no mesh and no block-sparse backend, so the candidates are
-        dense, frontier and bitpacked (dense and bitpacked for a relational
-        repair, dense and frontier for single-path)."""
+        port has no mesh, so the candidates are dense, frontier, bitpacked
+        and — when the graph is large enough for block skipping — blocksparse
+        (dense, bitpacked and blocksparse for a relational repair, dense and
+        frontier for single-path)."""
         placement = (
             state.sp_placement if semantics == "single_path" else state.placement
         )
@@ -456,7 +461,13 @@ class QueryEngine:
             cache=cache,
             placement=placement,
             mesh_devices=0,
-            occupied_blocks=0,
+            # label-blind base-graph occupancy (O(E) host count) prices the
+            # blocksparse candidate; the padded n is always a multiple of
+            # every legal tile, so eligibility only needs the count itself
+            occupied_blocks=occupied_blocks_of_edges(
+                self.n, self.graph.edges, self.config.tile
+            ),
+            tile=self.config.tile,
         )
         return self.planner.decide(
             f, pin=self._pin, min_capacity=self.row_capacity
@@ -501,10 +512,10 @@ class QueryEngine:
         if repair:
             frozen_dev = torch.from_numpy(np.asarray(frozen)).to(self.device)
             n_frozen = int(np.asarray(frozen).sum())
-            if single_path or eng_name != "bitpacked":
+            if single_path or eng_name not in ("bitpacked", "blocksparse"):
                 # dense/frontier (and every single-path) repair compacts the
-                # contraction axis over active + frozen rows; the packed
-                # repair contracts full packed words instead
+                # contraction axis over active + frozen rows; the packed and
+                # block-sparse repairs contract full packed words instead
                 cap_c = bucket_for(max(cap, int(mask.sum()) + n_frozen), self.n)
         calls = 0
         fallback_event: dict | None = None
@@ -525,6 +536,7 @@ class QueryEngine:
                         tables, eng_name, self.n, cap, repair=repair,
                         ctx_capacity=cap_c, semantics=semantics,
                         instrumented=instrumented,
+                        tile=self.config.tile if eng_name == "blocksparse" else 0,
                     ),
                     provenance="pinned" if decision.pinned else "planned",
                 )
@@ -565,8 +577,14 @@ class QueryEngine:
                         self.planner.note_fallback()
                         continue
                 # overflow means the active set outgrew cap or (repair) the
-                # context outgrew cap_c, so at least one bucket grows
-                cap = bucket_for(max(cap, grown), self.n)
+                # context outgrew cap_c, so at least one bucket grows.
+                # Blocksparse overflows on *occupied blocks*, which the
+                # mask's row count need not exceed — double unconditionally
+                # so the ladder always terminates (capacity >= n is unbounded)
+                if eng_name == "blocksparse":
+                    cap = bucket_for(max(2 * cap, grown), self.n)
+                else:
+                    cap = bucket_for(max(cap, grown), self.n)
                 if cap_c:
                     cap_c = bucket_for(max(cap_c, grown + n_frozen), self.n)
                 csp.add_event(
@@ -634,6 +652,10 @@ class QueryEngine:
             state.T, state.T_host, state.mask = out, out.cpu().numpy(), M
             state.placement = "local"
             state.served_by = served
+            if served == "blocksparse":  # counted on the device state
+                self.metrics.observe_blocksparse(
+                    occupied_block_count(out, self.config.tile)
+                )
         return status, decision, fb
 
     def _mirror_rows(

@@ -3,11 +3,13 @@ and its fused sibling ``bitmm_or`` (one kernel with a template flag; each
 64-row tile takes a sparse row-gather path or a dense staged path by its
 set-bit count, see the source's header).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with plain C entry points and loaded with ``ctypes``.  The build happens
-at first use, from the sources in this checkout only, into
-``build/repro_torch/`` at the repository root; the library's file name
-carries a hash of the source and the flags, so an edit rebuilds it.
+Each source under ``csrc/`` (this one, and ``tile_bitmm.cu`` of
+``tile_bitmm.py``) is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library of its own with plain C entry points and loaded with ``ctypes``.
+The build happens at first use, from the sources in this checkout only,
+into ``build/repro_torch/`` at the repository root; the library's file
+name carries the source's name and a hash of the source and the flags, so
+an edit rebuilds it, and two processes or threads may build at once.
 Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc`` or a card.
 """
@@ -34,9 +36,8 @@ NVCC_FLAGS = (
 #: the staging list, 8 bytes per word, beside the 50 KB ring in 227 KB)
 MAX_LHS_WORDS = 22780
 
-# the loaded library, and what its build reported
-_LIB: ctypes.CDLL | None = None
-BUILD_INFO: dict = {}
+# the loaded library of each source
+_LIBS: dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -51,8 +52,8 @@ def _nvcc() -> str:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the library's C entry points: (argument types, result type)
-_ENTRIES = {
+#: SOURCE's C entry points: (argument types, result type)
+ENTRIES = {
     "repro_bitmm": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "repro_bitmm_or": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "repro_bitmm_path": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
@@ -60,17 +61,17 @@ _ENTRIES = {
 }
 
 
-def load(source: Path = SOURCE) -> tuple[ctypes.CDLL, dict]:
+def load(source: Path = SOURCE, entries: dict = ENTRIES) -> tuple[ctypes.CDLL, dict]:
     """Compile ``source`` with NVCC_FLAGS into BUILD_DIR (unless a library
-    of the same source and flags is there) and load it, its entry points
-    bound (those of ``_ENTRIES`` it has: another revision of the source may
-    have only the two public ones).  Returns the library and its build's
-    seconds, path and ptxas report (kept beside the library, for a later
-    process that finds it built)."""
+    of the same source and flags is there) and load it, its ``entries``
+    bound (those it has: another revision of the source may have only the
+    two public ones).  Returns the library and its build's seconds, path
+    and ptxas report (kept beside the library, for a later process that
+    finds it built)."""
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    path = BUILD_DIR / f"libbitmm_{digest}.so"
+    path = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     log_path = path.with_suffix(".log")
     t0 = time.perf_counter()
     if not path.exists():
@@ -92,7 +93,7 @@ def load(source: Path = SOURCE) -> tuple[ctypes.CDLL, dict]:
         os.replace(tmp, path)  # atomic: concurrent builds race safely
     log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in _ENTRIES.items():
+    for name, (argtypes, restype) in entries.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
@@ -100,14 +101,13 @@ def load(source: Path = SOURCE) -> tuple[ctypes.CDLL, dict]:
     return lib, info
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library of this checkout, compiled on first call
-    (``BUILD_INFO`` then holds what ``load`` reports)."""
-    global _LIB
-    if _LIB is None:
-        _LIB, info = load(SOURCE)
-        BUILD_INFO.update(info)
-    return _LIB
+def library(source: Path = SOURCE, entries: dict = ENTRIES) -> ctypes.CDLL:
+    """The kernel library of ``source`` in this checkout, compiled on first
+    call, its ``entries`` bound."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = _LIBS[source] = load(source, entries)[0]
+    return lib
 
 
 def _check_operands(kernel: str, lhs: torch.Tensor, rhs: torch.Tensor,
@@ -149,15 +149,16 @@ def _check_operands(kernel: str, lhs: torch.Tensor, rhs: torch.Tensor,
     return B, m, wk, w
 
 
-def _launch(entry: str, args: tuple, device: torch.device) -> None:
-    fn = getattr(library(), entry)
+def _launch(fn, args: tuple, device: torch.device) -> None:
+    """Call the bound entry point ``fn`` with ``args`` and ``device``'s
+    current stream; raise on a launch error."""
     if device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     else:
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
 
 
 def bitmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -166,7 +167,7 @@ def bitmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     B, m, wk, w = _check_operands("bitmm_cuda", lhs, rhs)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
     _launch(
-        "repro_bitmm",
+        library().repro_bitmm,
         (lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, m, wk, w),
         lhs.device,
     )
@@ -183,7 +184,7 @@ def bitmm_or_cuda(
     B, m, wk, w = _check_operands("bitmm_or_cuda", lhs, rhs, acc)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
     _launch(
-        "repro_bitmm_or",
+        library().repro_bitmm_or,
         (lhs.data_ptr(), rhs.data_ptr(), acc.data_ptr(), out.data_ptr(),
          B, m, wk, w),
         lhs.device,
@@ -215,7 +216,7 @@ def bitmm_path_cuda(
     B, m, wk, w = _check_operands("bitmm_path_cuda", lhs, rhs, acc)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
     _launch(
-        "repro_bitmm_path",
+        library().repro_bitmm_path,
         (lhs.data_ptr(), rhs.data_ptr(),
          None if acc is None else acc.data_ptr(), out.data_ptr(),
          B, m, wk, w, sparse_max_bits),

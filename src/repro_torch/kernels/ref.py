@@ -36,3 +36,35 @@ def bitmm_or_ref(
             f"{tuple(prod.shape)}"
         )
     return acc_packed | prod
+
+
+def tile_bitmm_ref(lhs_tiles: torch.Tensor, rhs_tiles: torch.Tensor) -> torch.Tensor:
+    """Square-tile bitpacked Boolean matmul of the block-sparse backend:
+    (p, B, B/32) x (p, B, B/32) -> (p, B, B/32), one independent product
+    per pair — :func:`bitmm_ref` at the tile shape."""
+    return bitmm_ref(lhs_tiles, rhs_tiles)
+
+
+def tile_contract_ref(
+    tiles: torch.Tensor,
+    l_idx: torch.Tensor,
+    r_idx: torch.Tensor,
+    seg: torch.Tensor,
+    n_out: int,
+) -> torch.Tensor:
+    """OR of the tile products of each output segment: ``out[s] = OR over
+    pairs p with seg[p] == s of tiles[l_idx[p]] x tiles[r_idx[p]]``,
+    ``(n_out, B, B/32)`` int32.  Pad pairs name segment ``n_out`` and are
+    dropped.  The reference's ``_contract_chunk`` up to ``packed``: gather,
+    multiply, unpack to 0/1 bytes, ``amax`` per segment (max over {0, 1}
+    is the OR), repack."""
+    lhs = tiles[l_idx.long()]
+    rhs = tiles[r_idx.long()]
+    prod = bitmm_ref(lhs, rhs)
+    bits = unpack_bits(prod, 32 * prod.shape[-1]).to(torch.uint8)
+    merged = torch.zeros(
+        (n_out + 1, *bits.shape[1:]), dtype=torch.uint8, device=bits.device
+    )
+    index = seg.long().view(-1, 1, 1).expand_as(bits)
+    merged.scatter_reduce_(0, index, bits, "amax")
+    return pack_bits(merged[:n_out].bool())

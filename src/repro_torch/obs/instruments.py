@@ -8,9 +8,9 @@ caches labeled children up front, so hot-path calls (``observe_flush``,
 ``observe_cache``) are attribute bumps with no dict construction.
 
 This is the port's slice of the reference's bundles: the serving
-families, and the engine's plan-cache, closure and delta families (with
-``delta_epoch_lag``, which the serving loop sets).  The count and
-block-sparse families come with the slices that feed them.
+families, and the engine's plan-cache, closure, delta and block-sparse
+families (with ``delta_epoch_lag``, which the serving loop sets).  The
+count families come with the slice that feeds them.
 
 Bundles are memoized per registry (:meth:`ServeMetrics.on`): the server
 and the engine can both ask for "the serve metrics of this registry" and
@@ -128,7 +128,8 @@ class ServeMetrics(_Bundle):
 
 
 class EngineMetrics(_Bundle):
-    """Engine-side families: plan cache, closure calls and delta repair."""
+    """Engine-side families: plan cache, closure calls, delta repair and
+    the block-sparse state's occupancy."""
 
     _slot = "_repro_engine_bundle"
 
@@ -172,6 +173,12 @@ class EngineMetrics(_Bundle):
             "Wall time the most recent delta spent fenced before apply",
             registry=registry,
         )
+        self.blocksparse_occupied_blocks = Gauge(
+            "blocksparse_occupied_blocks",
+            "Occupied bit-tiles of the last blocksparse-served closure "
+            "state (materialized memory is proportional to this)",
+            registry=registry,
+        )
         self._hit = self.cache_lookups.labels(state="hit")
         self._miss = self.cache_lookups.labels(state="miss")
 
@@ -187,3 +194,7 @@ class EngineMetrics(_Bundle):
         self.delta_rows_repaired.inc(stats.rows_repaired)
         self.delta_rows_evicted.inc(stats.rows_evicted)
         self.delta_repair_iters.inc(stats.repair_iters)
+
+    def observe_blocksparse(self, occupied: int) -> None:
+        """Record the occupied-block count of a blocksparse-served state."""
+        self.blocksparse_occupied_blocks.set(float(occupied))

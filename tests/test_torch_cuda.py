@@ -54,7 +54,8 @@ def test_bitmm_kernel_rejects_what_it_does_not_take(card):
         ops.bitmm(lhs.cpu(), rhs)
 
 
-@pytest.mark.parametrize("backend", ["dense", "frontier", "bitpacked", "auto"])
+@pytest.mark.parametrize(
+    "backend", ["dense", "frontier", "bitpacked", "blocksparse", "auto"])
 def test_engine_on_card_matches_engine_on_cpu(card, backend):
     graph = paper_table_graph("foaf").repeat(2)
     g = query1_grammar().to_cnf()
@@ -103,7 +104,8 @@ def test_bitmm_or_kernel_rejects_what_it_does_not_take(card):
         ops.bitmm_or(lhs, rhs, acc.cpu())
 
 
-@pytest.mark.parametrize("backend", ["dense", "frontier", "bitpacked", "auto"])
+@pytest.mark.parametrize(
+    "backend", ["dense", "frontier", "bitpacked", "blocksparse", "auto"])
 def test_engine_repair_on_card_matches_engine_on_cpu(card, backend):
     """The same queries and edits on the card and on the CPU: the same
     pairs, cache statuses, repair stats, repaired state and mask."""
@@ -128,7 +130,7 @@ def test_engine_repair_on_card_matches_engine_on_cpu(card, backend):
         (state,) = eng._states.values()
         return out, state
 
-    before = ops.or_launches
+    before, tile_before = ops.or_launches, ops.tile_launches
     want, want_state = run("cpu")
     got, got_state = run("cuda")
     torch.cuda.synchronize()
@@ -142,6 +144,8 @@ def test_engine_repair_on_card_matches_engine_on_cpu(card, backend):
     assert torch.equal(got_state.T.cpu(), want_state.T)
     if backend == "bitpacked":
         assert ops.or_launches > before
+    if backend == "blocksparse":
+        assert ops.tile_launches > tile_before
 
 
 # ---------------------------------------------------------------------- #
@@ -341,3 +345,99 @@ def test_server_on_card_serves_both_semantics_and_a_fenced_write(card):
     got = asyncio.run(asyncio.wait_for(serve("cuda"), 60))
     assert got == want
     assert ops.launches > before  # the relational batches ran bitmm
+
+
+# ---------------------------------------------------------------------- #
+# the block-sparse backend's tile kernel
+# ---------------------------------------------------------------------- #
+
+
+def _indices(rng, high, size, card):
+    return torch.from_numpy(rng.integers(0, high, size).astype(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("B", [32, 64, 128])
+def test_tile_contract_kernel_matches_plain_version(card, B):
+    """Slot gathers, repeated output segments, pad pairs (segment n_out)
+    and old tiles in ``out``, at densities up to every bit set: the kernel
+    is word-equal to the plain version.  ``tile_bitmm`` too."""
+    rng = np.random.default_rng(40 + B)
+    for S, p, n_out, d in ((8, 1, 1, 0.05), (64, 7, 3, 0.3),
+                           (600, 512, 100, 0.01), (32, 40, 8, 1.0)):
+        tiles = _words(rng, (S, B, B), d).to(card)
+        l_idx, r_idx = _indices(rng, S, p, card), _indices(rng, S, p, card)
+        seg = _indices(rng, n_out + 1, p, card)
+        old = _words(rng, (n_out, B, B), 0.02).to(card)
+        want = old | ref.tile_contract_ref(tiles, l_idx, r_idx, seg, n_out)
+        got = old.clone()
+        before = ops.tile_launches
+        fault = ops.tile_contract(tiles, l_idx, r_idx, seg, got)
+        assert fault.tolist() == [0]
+        assert ops.tile_launches == before + 1
+        assert torch.equal(got, want), (S, p, n_out, d)
+    lhs = _words(rng, (9, B, B), 0.1).to(card)
+    rhs = _words(rng, (9, B, B), 0.1).to(card)
+    assert torch.equal(ops.tile_bitmm(lhs, rhs), ref.bitmm_ref(lhs, rhs))
+
+
+def test_tile_kernel_rejects_what_it_does_not_take(card):
+    tiles = torch.zeros((8, 128, 4), dtype=torch.int32, device=card)
+    idx = torch.zeros(4, dtype=torch.int32, device=card)
+    out = torch.zeros((2, 128, 4), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="not torch.int32"):
+        ops.tile_contract(tiles.long(), idx, idx, idx, out)
+    with pytest.raises(TypeError, match="not torch.int32"):
+        ops.tile_contract(tiles, idx.long(), idx, idx, out)
+    with pytest.raises(ValueError, match="not CUDA"):
+        ops.tile_contract(tiles, idx.cpu(), idx, idx, out)
+    with pytest.raises(ValueError, match="tiles must be"):
+        ops.tile_contract(tiles[:, :96, :3].contiguous(), idx, idx, idx,
+                          out[:, :96, :3].contiguous())
+    with pytest.raises(ValueError, match="differ"):
+        ops.tile_contract(tiles, idx, idx[:3], idx, out)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.tile_contract(tiles, idx, idx, idx, out.transpose(0, 1))
+    with pytest.raises(ValueError, match="not CUDA"):
+        ops.tile_bitmm(tiles.cpu(), tiles)
+    before = ops.tile_launches
+    with pytest.raises(ValueError, match="empty bucket"):
+        ops.tile_contract(tiles, idx[:0], idx[:0], idx[:0], out)
+    assert ops.tile_launches == before
+
+
+@pytest.mark.parametrize("which, value", [
+    ("seg", -1), ("seg", 3), ("l_idx", -1), ("l_idx", 8), ("r_idx", 8),
+])
+def test_tile_kernel_flags_a_pair_out_of_range_as_the_cpu_does(card, which, value):
+    """A pair out of range is skipped and raises the fault flag on the card
+    exactly as on the CPU; the other pairs are contracted."""
+    rng = np.random.default_rng(41)
+    tiles = _words(rng, (8, 128, 128), 0.1)
+    idx = {"l_idx": _indices(rng, 8, 6, "cpu"),
+           "r_idx": _indices(rng, 8, 6, "cpu"), "seg": _indices(rng, 2, 6, "cpu")}
+    idx["seg"][-1] = 2  # a pad pair
+    idx[which][1] = value
+    old = _words(rng, (2, 128, 128), 0.02)
+    want = old.clone()
+    assert ops.tile_contract(tiles, *idx.values(), want).tolist() == [1]
+    got = old.to(card)
+    fault = ops.tile_contract(tiles.to(card), *(t.to(card) for t in idx.values()),
+                              got)
+    assert fault.tolist() == [1]
+    assert torch.equal(got.cpu(), want)
+
+
+def test_blocksparse_closure_state_on_card_matches_cpu(card):
+    """The standalone closure over the compacted state: the same slots,
+    coordinates and tile words on the card as on the CPU, through the
+    kernel."""
+    from repro_torch.core.blocksparse import blocksparse_closure_state
+
+    graph = paper_table_graph("pizza").repeat(4)
+    g = query1_grammar().to_cnf()
+    want = blocksparse_closure_state(graph, g, tile=64, device="cpu")
+    before = ops.tile_launches
+    got = blocksparse_closure_state(graph, g, tile=64, device=card)
+    assert ops.tile_launches > before
+    assert got.coords == want.coords and got.index == want.index
+    assert torch.equal(got.tiles.cpu(), want.tiles)

@@ -47,8 +47,10 @@ def test_the_port_has_the_slice_modules():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
     assert {
         "core/grammar.py", "core/graph.py", "core/matrices.py",
-        "core/closure.py", "core/semantics.py", "baselines/hellings.py",
+        "core/closure.py", "core/semantics.py", "core/blocksparse.py",
+        "baselines/hellings.py",
         "kernels/ref.py", "kernels/bitmm.py", "kernels/ops.py",
+        "kernels/tile_bitmm.py",
         "obs/trace.py", "obs/metrics.py", "obs/instruments.py",
         "obs/export.py", "obs/chrome.py",
         "delta/txn.py", "delta/repair.py", "engine/stats.py", "engine/config.py",
@@ -56,4 +58,5 @@ def test_the_port_has_the_slice_modules():
         "serve/config.py", "serve/coalesce.py", "serve/server.py",
         "serve/loadgen.py", "serve/__init__.py",
     } <= names
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitmm.cu").exists()
+    for source in ("bitmm.cu", "tile_bitmm.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / source).exists()
