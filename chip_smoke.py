@@ -4,13 +4,17 @@
 
 Builds the port's hand-written CUDA kernels (``bitmm`` and ``bitmm_or``
 from csrc/bitmm.cu, the block-sparse backend's ``tile_contract`` from
-csrc/tile_bitmm.cu; one nvcc per source, started together) from this
+csrc/tile_bitmm.cu, the single-path closures' ``minplus`` from
+csrc/minplus.cu; one nvcc per source, started together) from this
 checkout and fails if ptxas reports a spill in any template instance;
 holds each kernel against its plain torch version on the card (``bitmm``
 and ``bitmm_or`` through their compiled-in path threshold and with each of
 their two paths, sparse row gather and staged dense tiles, forced;
 ``tile_contract`` on buckets of 1, 7 and 512 tile pairs at B = 32, 64 and
-128); drives the port's main
+128, as the fixpoint's chunks, runs of pairs sharing an lhs slot
+included; ``minplus``
+bit-equal on random cases: finite shares 1e-4 to 1, ragged shapes, rows
+without a finite entry, the index and the acc forms, K = 15,872); drives the port's main
 path (relational CFPQ served by ``repro_torch.engine.QueryEngine``) at
 full size — ``paper_table_graph("pizza").repeat(16)``, 15,856 nodes padded
 to n = 15,872, with Query 1 in CNF — and checks every answer against the
@@ -24,15 +28,18 @@ CFPQ (paper Section 5) on the dense, frontier and auto engines: batches of
 checked against Hellings and by a CYK check of each witness (its length
 equal to its entry of the length state), the host mirror of the 7 GB
 length state against the device, a seeded edit of copy 0 repaired in
-place; the dense phase also times one min-plus product against its bound.
+place, each phase launching the min-plus kernel; the dense phase also
+times one min-plus product on the state against its two bounds (every
+candidate, and what the finite entries need) and the plain version.
 The block-sparse backend: the engine pinned to ``blocksparse`` (and
 ``auto``) through all-pairs, the 256-source batch and a seeded edit at the
 main path's size, checked against Hellings and a bitpacked engine's
 state; then ``blocksparse_closure_state`` at a million nodes (pizza x
 1024, n = 1,014,784; the dense tensor never exists), its S tiles checked
 against Hellings on one copy, shifted, with the tile launches' device
-time beside the wall time; the tile kernel on that run's slot store and
-timed at its bucket shape.
+time beside the wall time and the device operations per chunk (from
+``torch.profiler``); the tile kernel on that run's slot store and timed at
+its bucket shape.
 Then ``serve_open_loop``: 512 requests at 200 offered queries/s through
 ``repro_torch.serve.CFPQServer`` with a fenced write halfway, every
 answer checked against Hellings at the epoch it reports.  Last, the
@@ -163,16 +170,15 @@ def phase_device() -> dict:
     return info
 
 
-def ptxas_instances(log: str) -> list[dict]:
-    """Registers and spills of each template instance of the kernel, from
-    ``nvcc -Xptxas -v``: ``bitmm_kernel<kAcc, NV, V>`` (kAcc 1 is
-    bitmm_or; NV units of V words per lane in the sparse path)."""
+def kernel_instances(log: str, pattern: str, label) -> list[dict]:
+    """Registers and spills of each template instance whose mangled name
+    matches ``pattern``, from ``nvcc -Xptxas -v``; ``label`` names an
+    instance from the pattern's groups."""
     found, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*bitmm_kernelILb(\d)ELi(\d+)ELi(\d+)E", ln)
+        m = re.search(r"Function properties for \S*" + pattern, ln)
         if m:
-            name = "bitmm_kernel<{}, {}, {}>".format(
-                "true" if m.group(1) == "1" else "false", m.group(2), m.group(3))
+            name = label(*m.groups())
             found.append({"instance": name})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -184,56 +190,69 @@ def ptxas_instances(log: str) -> list[dict]:
             found[-1]["registers"] = int(m.group(1))
             name = None
     return found
+
+
+def _flag(bit: str) -> str:
+    return "true" if bit == "1" else "false"
+
+
+def ptxas_instances(log: str) -> list[dict]:
+    """``bitmm_kernel<kAcc, NV, V>`` (kAcc true is bitmm_or; NV units of V
+    words per lane in the sparse path)."""
+    return kernel_instances(
+        log, r"bitmm_kernelILb(\d)ELi(\d+)ELi(\d+)E",
+        lambda acc, nv, v: f"bitmm_kernel<{_flag(acc)}, {nv}, {v}>")
 
 
 def tile_instances(log: str) -> list[dict]:
-    """Registers and spills of each instance ``tile_contract_kernel<B>`` of
-    the block-sparse tile kernel, from ``nvcc -Xptxas -v``."""
-    found, name = [], None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*tile_contract_kernelILi(\d+)E", ln)
-        if m:
-            name = f"tile_contract_kernel<{m.group(1)}>"
-            found.append({"instance": name})
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and name:
-            found[-1].update(spill_stores=int(m.group(1)),
-                             spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            found[-1]["registers"] = int(m.group(1))
-            name = None
-    return found
+    """``tile_contract_kernel<B>`` of the block-sparse tile kernel."""
+    return kernel_instances(log, r"tile_contract_kernelILi(\d+)E",
+                            lambda b: f"tile_contract_kernel<{b}>")
+
+
+def minplus_instances(log: str) -> list[dict]:
+    """``minplus_kernel<kVec, kAcc>`` of the min-plus kernel."""
+    return kernel_instances(
+        log, r"minplus_kernelILb(\d)ELb(\d)E",
+        lambda vec, acc: f"minplus_kernel<{_flag(vec)}, {_flag(acc)}>")
 
 
 def phase_build() -> None:
-    """Both kernel sources, one nvcc each, started together."""
+    """The three kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import bitmm as kbitmm
+    from repro_torch.kernels import minplus as kminplus
     from repro_torch.kernels import tile_bitmm as ktile
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        (_, info), (_, tinfo) = pool.map(kbitmm.load, (kbitmm.SOURCE, ktile.SOURCE),
-                                         (kbitmm.ENTRIES, ktile.ENTRIES))
+    with ThreadPoolExecutor(3) as pool:
+        (_, info), (_, tinfo), (_, minfo) = pool.map(
+            kbitmm.load, (kbitmm.SOURCE, ktile.SOURCE, kminplus.SOURCE),
+            (kbitmm.ENTRIES, ktile.ENTRIES, kminplus.ENTRIES))
     wall_s = time.perf_counter() - t0
     instances = ptxas_instances(info["log"])
     tinstances = tile_instances(tinfo["log"])
+    minstances = minplus_instances(minfo["log"])
+    logs = (info["log"], tinfo["log"], minfo["log"])
     emit(
-        "build", kernels=["bitmm", "bitmm_or", "tile_contract"], wall_s=wall_s,
-        seconds={"bitmm": info["seconds"], "tile_bitmm": tinfo["seconds"]},
-        library=[Path(info["path"]).name, Path(tinfo["path"]).name],
+        "build", kernels=["bitmm", "bitmm_or", "tile_contract", "minplus"],
+        wall_s=wall_s,
+        seconds={"bitmm": info["seconds"], "tile_bitmm": tinfo["seconds"],
+                 "minplus": minfo["seconds"]},
+        library=[Path(i["path"]).name for i in (info, tinfo, minfo)],
         sparse_max_bits=kbitmm.sparse_max_bits(), instances=instances,
-        tile_instances=tinstances,
-        ptxas=[ln for ln in (info["log"] + "\n" + tinfo["log"]).splitlines() if ln],
+        tile_instances=tinstances, minplus_instances=minstances,
+        ptxas=[ln for ln in "\n".join(logs).splitlines() if ln],
     )
     check(len(instances) == 6, f"ptxas reported {len(instances)} kernel "
           "instances, want 6 (2 kernels x 3 row layouts)")
     check(len(tinstances) == 3, f"ptxas reported {len(tinstances)} tile kernel "
           "instances, want 3 (B = 32, 64, 128)")
-    for inst in instances + tinstances:
+    check(len(minstances) == 4, f"ptxas reported {len(minstances)} min-plus "
+          "kernel instances, want 4 (16-byte or single columns, with or "
+          "without acc)")
+    for inst in instances + tinstances + minstances:
         check(inst.get("spill_stores") == 0 and inst.get("spill_loads") == 0,
               f"ptxas reports spills in {inst}")
 
@@ -455,20 +474,20 @@ def shifted_oracle() -> set[tuple[int, int]]:
 def reset_launches() -> None:
     from repro_torch.kernels import ops
 
-    ops.launches = ops.or_launches = ops.tile_launches = 0
+    ops.launches = ops.or_launches = ops.tile_launches = ops.minplus_launches = 0
 
 
 def read_launches() -> dict:
     from repro_torch.kernels import ops
 
     return {"bitmm": ops.launches, "bitmm_or": ops.or_launches,
-            "tile_contract": ops.tile_launches}
+            "tile_contract": ops.tile_launches, "minplus": ops.minplus_launches}
 
 
 def run_phase(fn):
     """Run ``fn`` with the kernel counts at 0 and the peak memory reset;
     returns (result, wall ms, ``{"bitmm": .., "bitmm_or": ..,
-    "tile_contract": ..}`` launches in the run)."""
+    "tile_contract": .., "minplus": ..}`` launches in the run)."""
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1055,8 +1074,9 @@ SCALE_COPIES = 1024  # pizza copies of the standalone closure: n = 1,014,784
 def tile_bucket(gen, store, p: int, n_out: int):
     """One bucket of ``p`` pairs over the slots of ``store``: segments over
     ``n_out`` output blocks (repeated), the last quarter pad pairs (segment
-    ``n_out``), and old tiles in ``out`` for about half of the outputs (the
-    tile of a random slot), zeros for the rest."""
+    ``n_out``), and for about half of the outputs an old tile (slot
+    ``out_slot[s]`` where ``exists[s]``, int32 0/1).  Returns ``(l_idx,
+    r_idx, seg, out_slot, exists)``."""
     dev = store.device
     S = store.shape[0]
 
@@ -1066,32 +1086,45 @@ def tile_bucket(gen, store, p: int, n_out: int):
 
     l_idx, r_idx, seg = ints(S, p), ints(S, p), ints(n_out, p)
     seg[p - p // 4:] = n_out
-    exists = torch.rand(n_out, generator=gen, device=dev) < 0.5
-    old = torch.where(exists[:, None, None], store[ints(S, n_out).long()], 0)
-    return l_idx, r_idx, seg, old
+    exists = (torch.rand(n_out, generator=gen, device=dev) < 0.5).to(torch.int32)
+    return l_idx, r_idx, seg, ints(S, n_out), exists
 
 
-def held_tile(store, l_idx, r_idx, seg, old, what: str) -> int:
-    """ops.tile_contract word-equal to old | tile_contract_ref; returns the
-    largest absolute difference of the words (0)."""
+def held_tile(store, l_idx, r_idx, seg, out_slot, exists, what: str) -> int:
+    """The tile kernel word-equal to its plain version: the new tiles and
+    the changed / nonzero flags of ``ops.tile_contract_chunk``, three
+    chunks in a row through one work object, so the second reuses the
+    buffer that the first zeroed and the third the one the second zeroed;
+    no fault.  Returns the largest absolute difference of the words (0)."""
     from repro_torch.kernels import ops, ref
 
-    want = old | ref.tile_contract_ref(store, l_idx, r_idx, seg, old.shape[0])
-    got = old.clone()
-    fault = ops.tile_contract(store, l_idx, r_idx, seg, got)
-    check(fault.tolist() == [0], f"tile_contract flagged a pair out of range on {what}")
-    err = int((got.long() - want.long()).abs().max())
-    check(err == 0 and torch.equal(got, want),
-          f"tile_contract != its plain version on {what}")
+    n_out = out_slot.shape[0]
+    want, want_flags = ref.tile_contract_chunk_ref(
+        store, l_idx, r_idx, seg, out_slot, exists, n_out)
+    work = ops.tile_work(store.shape[1], 512, store.device)
+    err = 0
+    for turn in range(3):
+        new, flags = ops.tile_contract_chunk(
+            store, l_idx, r_idx, seg, out_slot, exists, n_out, work)
+        cap = (flags.shape[0] - 1) // 2
+        err = max(err, int((new.long() - want.long()).abs().max()))
+        check(torch.equal(new, want), f"tile_contract (chunk {turn}) != its "
+              f"plain version on {what}")
+        check(torch.equal(flags[:n_out], want_flags[:n_out])
+              and torch.equal(flags[cap:cap + n_out], want_flags[n_out:-1])
+              and int(flags[-1]) == 0,
+              f"tile_contract (chunk {turn}) flags != the plain version's on {what}")
     return err
 
 
 def phase_tile_checks(dev, state=None) -> int:
-    """The tile kernel against its plain version, word for word: B = 32,
-    64 and 128; 1, 7 and 512 pairs with repeated output blocks, pad pairs
-    and outputs with and without an old tile; random stores at densities
-    1e-3 to every bit set, or (``state``) the real slot store of the scale
-    phase; and ``tile_bitmm`` against ``bitmm_ref``."""
+    """The tile kernel against its plain version, word for word, as the
+    fixpoint's chunks (:func:`held_tile`): B = 32, 64 and 128; 1, 7 and 512
+    pairs with repeated output blocks, pad pairs and outputs with and
+    without an old tile, and 512 pairs in runs of 40 that share an lhs slot
+    (longer than a half of the kernel's rhs ring at B = 128); random stores
+    at densities 1e-3 to every bit set, or (``state``) the real slot store
+    of the scale phase; and ``tile_bitmm`` against ``bitmm_ref``."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -1110,6 +1143,16 @@ def phase_tile_checks(dev, state=None) -> int:
     err = 0
     for name, store, p, n_out in cases:
         err = max(err, held_tile(store, *tile_bucket(gen, store, p, n_out), name))
+    # runs of 40 pairs that share an lhs slot
+    run_cases = 0
+    for B in ((32, 64, 128) if state is None else (state.tile,)):
+        store = (random_words(gen, (600, B, B // 32), 0.05, dev) if state is None
+                 else state.tiles[: state.n_slots])
+        l_idx, r_idx, seg, out_slot, exists = tile_bucket(gen, store, 512, 64)
+        l_idx = l_idx[torch.arange(512, device=dev) // 40 * 40]
+        err = max(err, held_tile(store, l_idx, r_idx, seg, out_slot, exists,
+                                 f"runs of 40 pairs, B={B}"))
+        run_cases += 1
     bitmm_cases = 0
     if state is None:
         for B in (32, 64, 128):
@@ -1121,7 +1164,8 @@ def phase_tile_checks(dev, state=None) -> int:
     torch.cuda.synchronize()
     emit("tile_checks", kernel="tile_contract",
          store="random" if state is None else "blocksparse_scale",
-         cases=len(cases), tile_bitmm_cases=bitmm_cases, max_abs_err=err,
+         cases=len(cases) + run_cases, chunks_per_case=3,
+         tile_bitmm_cases=bitmm_cases, max_abs_err=err,
          tolerance="exact word equality (torch.equal)")
     return err
 
@@ -1387,6 +1431,7 @@ def phase_blocksparse_scale(dev):
     check(torch.equal(state.tiles[slots], want),
           "blocksparse_scale: S tiles != shifted Hellings")
     closure_s = total_s - probe.from_graph_s
+    per_chunk = chunk_device_ops(graph, g, dev)
     emit("blocksparse_scale", copies=SCALE_COPIES, nodes=graph.n_nodes,
          edges=len(graph.edges), n=state.n, tile=B, grid=G,
          graph_build_s=graph_s, from_graph_s=probe.from_graph_s,
@@ -1400,8 +1445,50 @@ def phase_blocksparse_scale(dev):
          host_share_of_closure=1 - probe.device_ms / (1e3 * closure_s),
          s_pairs_checked=len(i), s_blocks=len(keys),
          max_memory_allocated=peak, memory_allocated_before=before,
-         phase_peak_bytes=peak - before)
+         phase_peak_bytes=peak - before, device_ops_per_chunk=per_chunk)
     return state
+
+
+def chunk_device_ops(graph, g, dev) -> dict | None:
+    """Device operations per chunk of the block-sparse fixpoint: a second
+    run of the closure of ``graph`` with ``torch.profiler`` around the
+    fixpoint alone (not ``from_graph``), its device events by kind (kernels
+    by name, copies, fills) over the chunks it contracted.  None where the
+    profiler records no device event."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import blocksparse as tbs
+
+    seen = {"chunks": 0}
+    fixpoint, operands = tbs._blocksparse_fixpoint, tbs._chunk_operands
+
+    def counted(*args):
+        seen["chunks"] += 1
+        return operands(*args)
+
+    def profiled(*args):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fixpoint(*args)
+            torch.cuda.synchronize()
+        seen["events"] = [ev.name for ev in prof.events()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return out
+
+    tbs._blocksparse_fixpoint, tbs._chunk_operands = profiled, counted
+    try:
+        tbs.blocksparse_closure_state(graph, g, tile=128, device=dev)
+    finally:
+        tbs._blocksparse_fixpoint, tbs._chunk_operands = fixpoint, operands
+    names, chunks = Counter(seen.get("events", ())), seen["chunks"]
+    if not names or not chunks:
+        return None
+    kinds = Counter("copy" if n.startswith("Memcpy") else
+                    "fill" if n.startswith("Memset") else "kernel" for n in names.elements())
+    return {"chunks": chunks, "per_chunk": {k: v / chunks for k, v in kinds.items()},
+            "total_per_chunk": sum(kinds.values()) / chunks,
+            "by_name": dict(names.most_common(12))}
 
 
 def first_bucket(state, tables):
@@ -1455,15 +1542,18 @@ def tile_bound(tiles, l_idx, r_idx, n_out: int) -> dict:
 
 def tile_timing(state, launches: int, err: int) -> dict:
     """The tile kernel at the main path's bucket shape (512 pairs of
-    (128, 4)-word tiles) on the real store of the scale phase: one call
-    (``ms``, the wrapper's host work included), device time, the plain
-    version, and one bf16 ``torch.bmm`` of the unpacked gathered tiles
-    (the product only) as the library yardstick; the bound is the larger
-    of the bytes at HBM rate and one OR of a W-word rhs row per set lhs bit
-    at the INT32 rate.  The bytes count only what the bucket needs: each
-    distinct slot it names read once (one store serves both sides; of a
-    slot named only as an rhs, only the rows some set bit of its pairs'
-    lhs tiles needs), and one read and one write of each output block."""
+    (128, 4)-word tiles) on the real store of the scale phase, as the
+    fixpoint runs it (the old tiles gathered and the flags set in the
+    launch): one call (``ms``, the wrapper's host work included), device
+    time, the plain version (``ref.tile_contract_chunk_ref``), and one bf16
+    ``torch.bmm`` of the unpacked gathered tiles (the product only) as the
+    library yardstick; ``runs`` counts the kernel's blocks that do work
+    (runs of pairs sharing an lhs slot, cut at every 256th pair).  The bound is the larger of the bytes at HBM rate and
+    one OR of a W-word rhs row per set lhs bit at the INT32 rate.  The
+    bytes count only what the bucket needs: each distinct slot it names
+    read once (one store serves both sides; of a slot named only as an
+    rhs, only the rows some set bit of its pairs' lhs tiles needs), and
+    one read and one write of each output block."""
     from repro_torch.core import blocksparse as tbs
     from repro_torch.core.grammar import query1_grammar
     from repro_torch.core.matrices import ProductionTables, unpack_bits
@@ -1474,15 +1564,19 @@ def tile_timing(state, launches: int, err: int) -> dict:
     out_keys, _, _, l_idx, r_idx, seg, out_slot, exists = tbs._chunk_operands(
         state, pairs, state.tiles.device)
     tiles = state.tiles
-    old = torch.where(exists[:, None, None], tiles[out_slot.long()], 0)
-    buf = old.clone()
-    held_tile(tiles, l_idx, r_idx, seg, old, "the timed bucket")
+    n_pad = out_slot.shape[0]
+    err = max(err, held_tile(tiles, l_idx, r_idx, seg, out_slot, exists,
+                             "the timed bucket"))
+    work = ops.tile_work(tiles.shape[1], tbs.PAIR_CHUNK, tiles.device)
 
     def run():
-        return ops.tile_contract(tiles, l_idx, r_idx, seg, buf)
+        return ops.tile_contract_chunk(tiles, l_idx, r_idx, seg, out_slot, exists,
+                                       n_pad, work)
 
     B = tiles.shape[1]
     p, n_out = len(pairs), len(out_keys)
+    ls = [x for x, _, _ in pairs]
+    runs = sum(1 for i in range(p) if i % 256 == 0 or ls[i] != ls[i - 1])
     bnd = tile_bound(tiles, l_idx[:p], r_idx[:p], n_out)
     a = unpack_bits(tiles[l_idx[:p].long()], B).to(torch.bfloat16)
     b = unpack_bits(tiles[r_idx[:p].long()], B).to(torch.bfloat16)
@@ -1492,12 +1586,13 @@ def tile_timing(state, launches: int, err: int) -> dict:
         "replaces": "src/repro/kernels/ops.py:54",
         "launches": launches, "max_abs_err": err,
         "ms": time_ms(run, reps=20, warmup=3),
-        "plain_ms": time_ms(lambda: old | ref.tile_contract_ref(
-            tiles, l_idx, r_idx, seg, old.shape[0]), reps=5),
+        "plain_ms": time_ms(lambda: ref.tile_contract_chunk_ref(
+            tiles, l_idx, r_idx, seg, out_slot, exists, n_pad), reps=5),
         "bound_ms": bnd.pop("bound_ms"), "bound_by": bnd.pop("bound_by"),
         "library_ms": time_ms(lambda: torch.bmm(a, b), reps=20, warmup=3),
         "ms_device": device_ms(run, reps=50),
-        "pairs": p, "output_blocks": n_out, "tile": list(tiles.shape[1:]), **bnd,
+        "pairs": p, "output_blocks": n_out, "runs": runs,
+        "tile": list(tiles.shape[1:]), **bnd,
     }
     del a, b
     emit("tile_timing", **row)
@@ -1557,48 +1652,181 @@ def state_equals_mirror(L: torch.Tensor, host: np.ndarray) -> bool:
     )
 
 
-def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables) -> dict:
+def minplus_bound(lhs, base, slab, row, finite_only: bool = True) -> dict:
+    """Least time of ``ops.minplus(lhs, base, slab, row)``: the larger of
+    bytes over HBM and operations (an add and a min per candidate) over
+    the float32 rate.  Counting what the inputs need (``finite_only``):
+    the lhs read once, of the rhs only the rows (slab[p], row[k]) that some
+    finite lhs entry names, the output written once, and 2 operations per
+    finite lhs entry per output column.  Else every candidate: the whole
+    gathered rhs (P, K, C) read and 2 operations per (p, i, k, j)."""
+    P, R, K = lhs.shape
+    C = base.shape[-1]
+    fin = torch.isfinite(lhs)
+    nnz = int(fin.sum())
+    if finite_only:
+        named = fin.any(dim=1)  # (P, K): rhs row k of slab p is read
+        keys = (slab[:, None] * base.shape[1] + row[None, :])[named]
+        rhs_rows = int(torch.unique(keys).numel())
+        ops_n = 2 * nnz * C
+    else:
+        rhs_rows, ops_n = P * K, 2 * P * R * K * C
+    bytes_ms = 4 * (lhs.numel() + rhs_rows * C + P * R * C) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "finite_lhs": nnz, "rhs_rows_read": rhs_rows}
+
+
+def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dict:
     """One dense single-path iteration's min-plus product at R = 1024 on
-    rows of the state: lhs (P, R, R), rhs (P, R, n); its time (CUDA events,
-    the loop's launches included), checked equal at two chunk sizes; and
-    its bound: inputs read once and the output written once over HBM, one
-    add and one min per candidate over the float32 rate."""
-    from repro_torch.core.semantics import _minplus, minplus_chunk
+    rows of the state, as the closure calls it: lhs (P, R, R) the active
+    block, the rhs rows named in L by the productions' C operands and the
+    active rows.  The kernel is checked equal to its plain version and
+    timed: one call (``ms``, CUDA events around the wrapper: its checks,
+    the index check's host sync and the launch), device time of launches
+    back to back (``ms_device``), the plain version; beside its bound
+    counting the data (the finite lhs entries and the rhs rows they name)
+    and the bound of the dense product (every candidate).  Then the same
+    shape with a fully finite random lhs, beside its operations bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.minplus import minplus_launch
 
     R = 1024
     idx = torch.from_numpy(np.nonzero(mask)[0][:R]).to(L.device)
     b_idx, c_idx = tables.index_tensors(L.device)
-    rows = L[:, idx, :]
-    lhs = rows[:, :, idx][b_idx].contiguous()
-    rhs = rows[c_idx].contiguous()
-    del rows
+    lhs = L[:, idx, :][:, :, idx][b_idx]
     P, rows_n, K = lhs.shape
-    cols = rhs.shape[-1]
-    out = _minplus(lhs, rhs)
-    check(torch.equal(out, _minplus(lhs, rhs, chunk=64)),
-          "min-plus differs across chunk sizes")
+    out = ops.minplus(lhs, L, c_idx, idx)
+    want = ref.minplus_ref(lhs, L, c_idx, idx)
+    check(torch.equal(out, want), "minplus != its plain version on the state")
     check(not bool(torch.isnan(out).any()), "min-plus produced NaN")
-    ms = time_ms(lambda: _minplus(lhs, rhs), reps=3)
-    bytes_ms = 4 * (lhs.numel() + rhs.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * P * rows_n * K * cols / FP32_OPS_PER_S * 1e3
-    del lhs, rhs, out
+    # the frontier closure's form: the product of the delta rows min-accumulated
+    # into the product against the active rows, here with half the entries
+    # as the delta
+    rows = L[:, idx, :]
+    rows_d = torch.where(torch.arange(rows.shape[-1], device=L.device) % 2 == 0,
+                         rows, float("inf"))
+    lhs_d = rows_d[:, :, idx][b_idx]
+    acc = ops.minplus(lhs, rows_d, c_idx)
+    check(torch.equal(acc, ref.minplus_ref(lhs, rows_d, c_idx)),
+          "minplus != its plain version on the state's delta rows")
+    want = ref.minplus_ref(lhs_d, L, c_idx, idx, acc=acc)
+    check(torch.equal(ops.minplus(lhs_d, L, c_idx, idx, acc=acc), want),
+          "minplus (acc form) != its plain version on the state")
+    del want, rows, rows_d, lhs_d, acc
+    bnd = minplus_bound(lhs, L, c_idx, idx)
+    dense = minplus_bound(lhs, L, c_idx, idx, finite_only=False)
+    row = {
+        "name": "minplus", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/minplus.cu",
+        "replaces": "src/repro/core/semantics.py:50",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(lambda: ops.minplus(lhs, L, c_idx, idx), reps=10, warmup=2),
+        "plain_ms": time_ms(lambda: ref.minplus_ref(lhs, L, c_idx, idx), reps=2),
+        "bound_ms": bnd.pop("bound_ms"), "bound_by": bnd.pop("bound_by"),
+        "library_ms": None,
+        "ms_device": device_ms(
+            lambda: minplus_launch(lhs, L, c_idx, idx, None, out), reps=20),
+        "R": rows_n, "K": K, "C": L.shape[-1], "P": P, **bnd,
+        "dense_bound_ms": dense["bound_ms"], "dense_bound_by": dense["bound_by"],
+    }
+    gen = torch.Generator(device=L.device)
+    gen.manual_seed(4)
+    full = random_lengths(gen, tuple(lhs.shape), 1.0, L.device)
+    got = ops.minplus(full, L, c_idx, idx)
+    check(torch.equal(got, ref.minplus_ref(full, L, c_idx, idx)),
+          "minplus != its plain version on a fully finite lhs")
+    fbnd = minplus_bound(full, L, c_idx, idx)
+    row["finite_lhs_case"] = {
+        "ms": time_ms(lambda: ops.minplus(full, L, c_idx, idx), reps=3),
+        "ms_device": device_ms(
+            lambda: minplus_launch(full, L, c_idx, idx, None, got), reps=3),
+        **fbnd,
+    }
+    del lhs, out, full, got
     torch.cuda.empty_cache()
-    return {"R": rows_n, "K": K, "cols": cols, "P": P, "ms": ms,
-            "chunk": minplus_chunk(P, rows_n, cols, K, "cuda"),
-            "bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms,
-            "ops_bound_ms": ops_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit("minplus_timing", **row)
+    return row
 
 
-def phase_single_path(dev, backend: str, time_minplus: bool = False) -> None:
+#: (P, R, K, C) of the random min-plus checks: K and C off every multiple
+#: of 4 and 32, more than one column tile, one row tile with a ragged edge,
+#: and the repair's K = n
+MINPLUS_SHAPES = ((3, 37, 45, 101), (2, 130, 33, 1030), (1, 8, 1, 4),
+                  (6, 64, 991, 2048), (6, 16, 15872, 1100))
+MINPLUS_DENSITIES = (1e-4, 1e-2, 1.0)  # share of finite lhs entries
+
+
+def random_lengths(gen, shape, finite: float, dev, integral: bool = True):
+    """f32 lengths >= 1 (integers below 1,000, or any float below 1,000),
+    +inf outside a share ``finite`` of the entries."""
+    x = torch.rand(shape, generator=gen, device=dev) * 999 + 1
+    if integral:
+        x = x.floor()
+    keep = torch.rand(shape, generator=gen, device=dev) < finite
+    return torch.where(keep, x, float("inf"))
+
+
+def phase_minplus_checks(dev) -> float:
+    """The min-plus kernel against its plain version, ``torch.equal``, on
+    random cases: every shape of MINPLUS_SHAPES at every finite share of
+    MINPLUS_DENSITIES (integral lengths, and at share 1e-2 any float, so
+    the adds round), with a quarter of the lhs rows all inf; each plain
+    (rhs (P, K, C)), in the index form (rhs rows of a larger base named
+    by a permuted slab index and a repeated, unsorted row index), and in
+    the acc form.  Returns the largest absolute difference (0)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cases = err = 0
+    for P, R, K, C in MINPLUS_SHAPES:
+        for d in MINPLUS_DENSITIES:
+            for integral in ((True, False) if d == 1e-2 else (True,)):
+                lhs = random_lengths(gen, (P, R, K), d, dev, integral)
+                lhs[:, ::4] = float("inf")  # rows without a finite entry
+                rhs = random_lengths(gen, (P, K, C), 0.5, dev, integral)
+                base = random_lengths(gen, (P + 1, K + 3, C), 0.5, dev, integral)
+                slab = torch.randperm(P + 1, generator=gen, device=dev)[:P]
+                row = torch.randint(0, K + 3, (K,), generator=gen, device=dev)
+                acc = random_lengths(gen, (P, R, C), 0.3, dev, integral)
+                for form, args, kwargs in (
+                        ("plain", (lhs, rhs), {}),
+                        ("index", (lhs, base, slab, row), {}),
+                        ("acc", (lhs, base, slab, row), {"acc": acc})):
+                    got = ops.minplus(*args, **kwargs)
+                    want = ref.minplus_ref(*args, **kwargs)
+                    same = torch.isinf(got) == torch.isinf(want)
+                    fin = torch.isfinite(want)
+                    diff = (got[fin] - want[fin]).abs().max() if fin.any() else 0.0
+                    err = max(err, float(diff))
+                    check(bool(same.all()) and torch.equal(got, want),
+                          f"minplus != its plain version: {(P, R, K, C)}, "
+                          f"finite {d}, {form}, integral {integral}")
+                    cases += 1
+                del lhs, rhs, base, acc
+    torch.cuda.synchronize()
+    emit("minplus_checks", kernel="minplus", cases=cases, max_abs_err=err,
+         shapes=[list(x) for x in MINPLUS_SHAPES], densities=MINPLUS_DENSITIES,
+         tolerance="bit equality (torch.equal)")
+    return err
+
+
+def phase_single_path(dev, backend: str, minplus_err: float | None = None):
     """Single-path CFPQ at full width on ``backend``: a cold batch of 16
     single-source queries in pizza copy 0, a second batch of 16, the
     Section 5 golden case, then seeded edits to copy 0 through
     ``apply_delta`` and the cold batch again.  Checked: pairs against
     Hellings, every witness a walk whose word Query 1 derives with as many
     edges as its entry of L, the host mirror against the device state,
-    rows outside copy 0 bit-identical across the edit, and the repaired
-    rows' support against a fresh engine's closure."""
+    rows outside copy 0 bit-identical across the edit, the repaired rows'
+    support against a fresh engine's closure, and that the cold batch and
+    the edit launched the min-plus kernel.  With ``minplus_err`` (the
+    largest error of the kernel's checks) it also times one min-plus
+    product on the state (:func:`minplus_timing`).  Returns ``(min-plus
+    launches of the phase's batches and edit, the timing row or None)``."""
     from repro_torch.core.grammar import query1_grammar
     from repro_torch.core.graph import Graph, paper_example_graph, paper_table_graph
     from repro_torch.engine import EngineConfig, Query, QueryEngine
@@ -1662,7 +1890,8 @@ def phase_single_path(dev, backend: str, time_minplus: bool = False) -> None:
     (st,) = eng._states.values()
     check(state_equals_mirror(st.sp_L, st.sp_L_host),
           f"single_path_{backend}: host mirror != device state")
-    timing = minplus_timing(st.sp_L, st.sp_mask, st.tables) if time_minplus else None
+    timing = (minplus_timing(st.sp_L, st.sp_mask, st.tables, minplus_err)
+              if minplus_err is not None else None)
 
     # the paper's example: (1, 2) freezes at 2, (0, 2) at 4, (0, 0) at 6
     small = QueryEngine(paper_example_graph(),
@@ -1715,9 +1944,16 @@ def phase_single_path(dev, backend: str, time_minplus: bool = False) -> None:
           f"single_path_{backend}: repaired support != a fresh closure")
     del fresh, fst, st, eng
     torch.cuda.empty_cache()
+    minplus_launches = sum(b["launches"]["minplus"] for b in batches.values())
+    minplus_launches += delta["launches"]["minplus"]
     emit(f"single_path_{backend}", n=graph.n_nodes, sources=SP_SOURCES,
-         batches=batches, delta=delta, minplus=timing,
+         batches=batches, delta=delta, minplus_launches=minplus_launches,
          golden={f"{i},{j}": v for (i, j), v in golden.items()})
+    for label, launches in (("the cold batch", batches["cold"]["launches"]),
+                            ("the edit", delta["launches"])):
+        check(launches["minplus"] > 0, f"single_path_{backend}: {label} never "
+              f"launched the min-plus kernel ({launches})")
+    return minplus_launches, timing
 
 
 SERVE_REQUESTS = 512
@@ -1737,8 +1973,9 @@ def phase_serve(dev) -> None:
     deletes and 3 inserts in copy 0, 3 inserts in copy 1).
     Checked: every answer against Hellings of its copy at the epoch it
     reports, requests admitted before the write served at the old epoch,
-    witnesses, exactly-once accounting with no failure, and both kernels
-    launched."""
+    witnesses, exactly-once accounting with no failure, the kernel of
+    every route taken launched, and the min-plus kernel launched when a
+    single-path request was served."""
     import asyncio
 
     from repro_torch.core.grammar import query1_grammar, query2_grammar
@@ -1900,6 +2137,7 @@ def phase_serve(dev) -> None:
          fallbacks=stats.fallbacks, launches=launches,
          write_ms=write["write_ms"], apply_delta_ms=write["apply_delta_ms"],
          repair_engines=write["repair_engines"], write_launches=write["launches"],
+         write_minplus_launches=write["launches"]["minplus"],
          fence_ms=write["write_ms"] - write["apply_delta_ms"],
          delta=write["stats"].as_dict(), max_memory_allocated=peak, n=graph.n_nodes)
     # every route taken must have launched its kernel: the planner's routes
@@ -1916,6 +2154,8 @@ def phase_serve(dev) -> None:
                   f"{route} repair never launched {kernel} ({write['launches']})")
     check(sum(launches.values()) > 0,
           "serve_open_loop launched no hand-written kernel")
+    check(n_sp == 0 or launches["minplus"] > 0, "serve_open_loop served "
+          f"{n_sp} single-path requests but never launched the min-plus kernel")
     del eng, sp_state, new_L
     torch.cuda.empty_cache()
 
@@ -1942,6 +2182,7 @@ def main() -> None:
     phase_kernel_checks(dev)
     phase_bitmm_or_checks(dev)
     tile_err = phase_tile_checks(dev)
+    minplus_err = phase_minplus_checks(dev)
     T, tables, launches = phase_main_path(dev)
     repair = phase_delta(dev)
     tile_launches = phase_blocksparse_engine(dev)
@@ -1950,11 +2191,16 @@ def main() -> None:
     tile_row = tile_timing(state, tile_launches, tile_err)
     del state
     torch.cuda.empty_cache()
+    minplus_launches, minplus_row = 0, None
     for backend in ("dense", "frontier", "auto"):
-        phase_single_path(dev, backend, time_minplus=backend == "dense")
+        n, timing = phase_single_path(
+            dev, backend, minplus_err if backend == "dense" else None)
+        minplus_launches += n
+        minplus_row = minplus_row or timing
+    minplus_row["launches"] = minplus_launches
     phase_serve(dev)
     kernels = phase_kernel_timing(T, tables, launches, repair, base)
-    print(json.dumps({"kernels": kernels + [tile_row]}), flush=True)
+    print(json.dumps({"kernels": kernels + [tile_row, minplus_row]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
 
 

@@ -21,12 +21,12 @@ k-block)×(k-block, col-block) pairs have occupied operands) is dynamic
 sparsity, so a Python driver enumerates the occupied pairs — that
 enumeration IS the block skipping — and hands each bucket of pairs to one
 contraction step (:func:`_contract_chunk`): on the card one launch of the
-hand-written tile kernel (:func:`repro_torch.kernels.ops.tile_contract`),
-which gathers the operand tiles by slot, multiplies them and ORs each
-product into its output block; then per-block change flags, brought to the
-host once per chunk.  Newly occupied blocks and changed blocks feed the
-next iteration's frontier; pairs whose operands both went unchanged are
-never re-contracted.  Each chunk scatters before the next gathers
+hand-written tile kernel (:func:`repro_torch.kernels.ops.tile_contract_chunk`),
+which gathers the operand tiles by slot, multiplies them, ORs each
+product and the old tile into its output block and sets per-block change
+flags, brought to the host once per chunk.  Newly occupied blocks and
+changed blocks feed the next iteration's frontier; pairs whose operands
+both went unchanged are never re-contracted.  Each chunk scatters before the next gathers
 (Gauss–Seidel order), exactly as the reference does, so overflow partial
 states and iteration counts match it.
 
@@ -317,29 +317,29 @@ def _contract_chunk(
     r_idx: torch.Tensor,  # (p,) int32 rhs slot per pair (pad: 0)
     seg: torch.Tensor,  # (p,) int32 output segment per pair (pad: n_out)
     out_slot: torch.Tensor,  # (n_out,) int32 existing slot per output (or 0)
-    out_exists: torch.Tensor,  # (n_out,) bool — out_slot valid?
+    out_exists: torch.Tensor,  # (n_out,) int32 or bool — out_slot valid?
     n_out: int,
     use_kernel: bool,
+    work=None,
 ):
     """OR of per-pair tile products per output block, merged with the
-    existing tile: returns ``(new (n_out, B, Bw), changed (n_out,),
-    nonzero (n_out,), fault)`` on the store's device.  Pad pairs point at
-    segment ``n_out`` (dropped); pad outputs simply come back
-    all-zero/unchanged.  ``use_kernel`` runs :func:`ops.tile_contract`
-    (the CUDA kernel on the card), whose unread fault flag is ``fault``;
-    else the plain :func:`ref.tile_contract_ref`, and ``fault`` is None."""
-    old = torch.where(
-        out_exists[:, None, None], tiles[out_slot.long()], 0
-    )
-    new = old.clone()
-    fault = None
+    existing tile: returns ``(new (n_out, B, Bw), flags)`` on the store's
+    device, ``flags`` an int32 vector ``(2m + 1,)``: the changed flag of
+    output ``s`` at ``s``, its nonzero flag at ``m + s``, and a fault word
+    last (see :func:`repro_torch.kernels.ops.tile_contract_chunk`).  Pad
+    pairs point at segment ``n_out`` (dropped); pad outputs simply come
+    back all-zero/unchanged.  ``use_kernel`` runs
+    :func:`ops.tile_contract_chunk` (on the card one launch of the CUDA
+    kernel into ``work``, which does the gather of the old tiles and the
+    flags too), whose fault word flags a pair out of range; else the plain
+    :func:`ref.tile_contract_chunk_ref`, whose fault word is 0."""
     if use_kernel:
-        fault = _kops.tile_contract(tiles, l_idx, r_idx, seg, new)
-    else:
-        new |= _kref.tile_contract_ref(tiles, l_idx, r_idx, seg, n_out)
-    changed = (new != old).any(2).any(1)
-    nonzero = (new != 0).any(2).any(1)
-    return new, changed, nonzero, fault
+        return _kops.tile_contract_chunk(
+            tiles, l_idx, r_idx, seg, out_slot, out_exists, n_out, work
+        )
+    return _kref.tile_contract_chunk_ref(
+        tiles, l_idx, r_idx, seg, out_slot, out_exists, n_out
+    )
 
 
 # ---------------------------------------------------------------------- #
@@ -370,7 +370,8 @@ def _chunk_operands(state: BlockSparseState, chunk, device):
     """The index operands of one chunk of ``(ls, rs, (a, rb, cb))`` pairs,
     padded to powers of two as the reference pads them, moved to the
     device in one copy.  Returns ``(out_keys, out_exists (host), out_slot
-    (host), device tensors l_idx, r_idx, seg, out_slot, out_exists)``."""
+    (host), device tensors l_idx, r_idx, seg, out_slot, out_exists (int32
+    0/1))``."""
     key_ids: dict[tuple[int, int, int], int] = {}
     seg = [key_ids.setdefault(k, len(key_ids)) for _, _, k in chunk]
     out_keys = list(key_ids)
@@ -396,7 +397,7 @@ def _chunk_operands(state: BlockSparseState, chunk, device):
     return (
         out_keys, out_exists.astype(bool), out_slot,
         dev[:p_pad], dev[p_pad : 2 * p_pad], dev[2 * p_pad : 3 * p_pad],
-        dev[3 * p_pad : 3 * p_pad + n_out], dev[3 * p_pad + n_out :].bool(),
+        dev[3 * p_pad : 3 * p_pad + n_out], dev[3 * p_pad + n_out :],
     )
 
 
@@ -432,6 +433,8 @@ def _blocksparse_fixpoint(
         else state.n * state.n * N + state.n
     )
     frontier: set[int] = set(range(state.n_slots))
+    # the kernel's work buffers, allocated and zeroed once (None on the CPU)
+    work = _kops.tile_work(B, PAIR_CHUNK, device) if use_kernel else None
     overflow = False
     it = 0
     while it < limit:
@@ -474,22 +477,21 @@ def _blocksparse_fixpoint(
                 chunk = pairs[lo : lo + PAIR_CHUNK]
                 (out_keys, exists, out_slot, l_d, r_d, seg_d, slot_d,
                  exists_d) = _chunk_operands(state, chunk, device)
-                new_t, changed, nonzero, fault = _contract_chunk(
-                    state.tiles, l_d, r_d, seg_d, slot_d, exists_d,
-                    len(out_slot), use_kernel,
+                n_out = len(out_slot)
+                new_t, flags = _contract_chunk(
+                    state.tiles, l_d, r_d, seg_d, slot_d, exists_d, n_out,
+                    use_kernel, work,
                 )
                 # the chunk's one host sync: both flag vectors and the
-                # kernel's fault flag in one copy
-                rows = [changed, nonzero]
-                if fault is not None:
-                    rows.append((fault != 0).expand_as(changed))
-                flags = torch.stack(rows).cpu().numpy()
-                if flags[2:].any():
+                # kernel's fault word in one copy
+                flags = flags.cpu().numpy()
+                if flags[-1]:
                     raise RuntimeError(
                         "tile_contract: a pair named a slot or segment "
                         "outside its range"
                     )
-                changed, nonzero = flags[:2]
+                m = (len(flags) - 1) // 2
+                changed, nonzero = flags[:n_out] != 0, flags[m : m + n_out] != 0
                 # 4. two-phase allocation: products were computed first,
                 # so all-zero results never occupy a slot
                 alloc = [

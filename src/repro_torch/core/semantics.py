@@ -11,8 +11,10 @@ witness of exactly that length is rebuilt by recursive splitting
 (:class:`PathExtractor`, host numpy, a copy of the reference's).
 
 The length annotation is a min-plus product gated by novelty: candidate
-lengths come from a chunked min-plus contraction (:func:`_minplus`) and are
-written only where the Boolean closure just found a new entry.  The
+lengths come from a min-plus contraction (:func:`repro_torch.kernels.ops.minplus`:
+the hand-written kernel on the card, which gathers the rhs rows of ``L``
+by index, so no copy of them is made) and are written only where the
+Boolean closure just found a new entry.  The
 invariants of the reference hold unchanged, and the tests hold every
 closure here bit-equal to its reference counterpart:
 
@@ -36,6 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import ref as _kref
+
 from . import closure as _closure
 from .closure import _active_rows, _all_rows, _iter_limit, _masked_init
 from .grammar import CNFGrammar
@@ -50,50 +55,22 @@ from .matrices import (
 
 INF = float("inf")
 
-#: bytes the min-plus product's ``(P, chunk, rows, cols)`` f32 temporary
-#: may take, per device type; the chunk of the contraction axis follows
-#: from it.  On the card a large temporary means few launches; on the CPU
-#: one that stays in cache is several times faster.  The result does not
-#: depend on the chunk (each candidate is one f32 add of two lengths, and
-#: ``min`` is exact in any order).
-MINPLUS_TEMP_BYTES = {"cuda": 2 << 30, "cpu": 16 << 20}
-
-
-def minplus_chunk(P: int, rows: int, cols: int, K: int, device_type: str) -> int:
-    """Contraction chunk of :func:`_minplus` under ``MINPLUS_TEMP_BYTES``."""
-    per_k = 4 * max(P * rows * cols, 1)
-    return max(1, min(K, MINPLUS_TEMP_BYTES[device_type] // per_k))
-
 
 def _minplus(
     lhs: torch.Tensor, rhs: torch.Tensor, chunk: int | None = None
 ) -> torch.Tensor:
     """Batched min-plus matmul: out[p,i,j] = min_k lhs[p,i,k] + rhs[p,k,j].
 
-    Tiled over the contraction axis k, so the peak temporary is
-    ``(P, chunk, rows, cols)`` f32; ``chunk=None`` takes it from the
-    device's ``MINPLUS_TEMP_BYTES``.  Operands may be rectangular.  As in the
-    reference, a ragged last chunk is padded with ``inf`` (``inf + x`` is
-    ``inf``; lengths are never negative, so no NaN can arise)."""
-    P, rows, K = lhs.shape
-    cols = rhs.shape[-1]
-    out = torch.full((P, rows, cols), INF, dtype=torch.float32, device=lhs.device)
-    if K == 0:
-        return out
+    :func:`repro_torch.kernels.ops.minplus` without indices: the CUDA
+    kernel on the card, the plain version on the CPU.  On the CPU a
+    ``chunk`` sets the plain version's contraction chunk (the result does
+    not depend on it); the card takes none.  Operands may be rectangular."""
     if chunk is None:
-        chunk = minplus_chunk(P, rows, cols, K, lhs.device.type)
-    chunk = min(chunk, K)
-    n_chunks = -(-K // chunk)
-    pad = n_chunks * chunk - K
-    if pad:
-        lhs = torch.nn.functional.pad(lhs, (0, pad), value=INF)
-        rhs = torch.nn.functional.pad(rhs, (0, 0, 0, pad), value=INF)
-    for c in range(n_chunks):
-        lk = lhs[:, :, c * chunk:(c + 1) * chunk].transpose(1, 2)  # (P, ch, rows)
-        rk = rhs[:, c * chunk:(c + 1) * chunk, :]  # (P, ch, cols)
-        cand = (lk[:, :, :, None] + rk[:, :, None, :]).amin(dim=1)
-        torch.minimum(out, cand, out=out)
-    return out
+        return _kops.minplus(lhs, rhs)
+    if lhs.device.type != "cpu" or rhs.device.type != "cpu":
+        raise ValueError("_minplus: a chunk is the CPU's plain version's; "
+                         "the card runs the kernel")
+    return _kref.minplus_ref(lhs, rhs, chunk=chunk)
 
 
 def _scatter_min(cand: torch.Tensor, tables: ProductionTables) -> torch.Tensor:
@@ -151,7 +128,7 @@ def single_path_closure(
     T = T.clone()
     changed, it = True, 0
     while changed and it < limit:
-        cand_a = _scatter_min(_minplus(L[b_idx], L[c_idx]), tables)
+        cand_a = _scatter_min(_kops.minplus(L[b_idx], L, c_idx), tables)
         new = torch.isfinite(cand_a) & ~T
         L = torch.where(new, cand_a, L)  # freeze-on-first-discovery
         T |= new
@@ -205,7 +182,7 @@ def masked_single_path_closure(
     if tables.n_prods == 0:
         return _all_rows(L)
     R, b_idx, c_idx, limit = _masked_init(L, tables, row_capacity, max_iters)
-    L = L.clone()
+    L = L.clone(memory_format=torch.contiguous_format)
     M = src_mask.clone()
     grew, overflow, it = True, False, 0
     while grew and not overflow and it < limit:
@@ -213,7 +190,8 @@ def masked_single_path_closure(
         vidx = idx[:cnt]
         rows = L[:, vidx, :]  # (N, cnt, n)
         lhs = rows[:, :, vidx][b_idx]  # (P, cnt, cnt): only rows in M contribute
-        newly, reach = _step(L, vidx, rows, _minplus(lhs, rows[c_idx]), tables)
+        cand = _kops.minplus(lhs, L, c_idx, vidx)  # rhs: rows vidx of L[c_idx]
+        newly, reach = _step(L, vidx, rows, cand, tables)
         M_next = M | reach
         overflow = int(M_next.sum()) > R
         grew = bool(newly.any()) or bool((M_next & ~M).any())
@@ -241,7 +219,7 @@ def masked_frontier_single_path_closure(
     if tables.n_prods == 0:
         return _all_rows(L)
     R, b_idx, c_idx, limit = _masked_init(L, tables, row_capacity, max_iters)
-    L = L.clone()
+    L = L.clone(memory_format=torch.contiguous_format)
     M = src_mask.clone()
     D = torch.isfinite(L) & M[None, :, None]
     overflow, it = False, 0
@@ -252,8 +230,8 @@ def masked_frontier_single_path_closure(
         rows_d = torch.where(D[:, vidx, :], rows, INF)  # delta entries
         lhs = rows[:, :, vidx][b_idx]
         lhs_d = rows_d[:, :, vidx][b_idx]
-        cand = torch.minimum(
-            _minplus(lhs, rows_d[c_idx]), _minplus(lhs_d, rows[c_idx])
+        cand = _kops.minplus(  # min of both products, the first as acc
+            lhs_d, L, c_idx, vidx, acc=_kops.minplus(lhs, rows_d, c_idx)
         )
         del rows_d, lhs_d
         newly, reach = _step(L, vidx, rows, cand, tables)
@@ -293,7 +271,7 @@ def masked_single_path_repair_closure(
     R, b_idx, c_idx, limit = _masked_init(L, tables, row_capacity, max_iters)
     n = L.shape[-1]
     C = min(ctx_capacity if ctx_capacity is not None else n, n)
-    L = L.clone()
+    L = L.clone(memory_format=torch.contiguous_format)
     M = src_mask & ~frozen_mask
     grew, overflow, it = True, False, 0
     while grew and not overflow and it < limit:
@@ -301,10 +279,10 @@ def masked_single_path_repair_closure(
         cidx, ccnt = _active_rows(M | frozen_mask, C)
         vidx, vcidx = idx[:cnt], cidx[:ccnt]
         rows = L[:, vidx, :]  # (N, cnt, n) active rows
-        ctx = L[:, vcidx, :]  # (N, ccnt, n) context: active and frozen rows
         lhs = rows[:, :, vcidx][b_idx]  # (P, cnt, ccnt)
-        newly, reach = _step(L, vidx, rows, _minplus(lhs, ctx[c_idx]), tables)
-        del ctx
+        # rhs: the context rows vcidx (active and frozen) of L[c_idx]
+        cand = _kops.minplus(lhs, L, c_idx, vcidx)
+        newly, reach = _step(L, vidx, rows, cand, tables)
         M_next = M | (reach & ~frozen_mask)
         overflow = (
             int(M_next.sum()) > R or int((M_next | frozen_mask).sum()) > C

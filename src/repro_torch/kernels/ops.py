@@ -3,9 +3,9 @@
 A wrapper takes its kernel's plain torch version (``ref.py``) only for
 tensors on the CPU — because the caller asked for the CPU.  On a CUDA
 tensor it launches the hand-written kernel or raises; there is no
-fallback.  ``launches``, ``or_launches`` and ``tile_launches`` count the
-launches of each kernel in this process, so a run can show that its main
-path went through the kernel.
+fallback.  ``launches``, ``or_launches``, ``tile_launches`` and
+``minplus_launches`` count the launches of each kernel in this process, so
+a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import torch
 
 from . import ref as _ref
 from .bitmm import bitmm_cuda, bitmm_or_cuda
-from .tile_bitmm import tile_contract_cuda
+from .minplus import minplus_cuda
+from .tile_bitmm import TileWork, tile_chunk_cuda
 
 #: launches of the CUDA bitmm kernel (a plain counter; callers reset it)
 launches = 0
@@ -21,6 +22,8 @@ launches = 0
 or_launches = 0
 #: launches of the CUDA tile-contraction kernel (likewise)
 tile_launches = 0
+#: launches of the CUDA min-plus kernel (likewise)
+minplus_launches = 0
 
 
 def bitmm(lhs_packed: torch.Tensor, rhs_packed: torch.Tensor) -> torch.Tensor:
@@ -49,46 +52,73 @@ def bitmm_or(
     return out
 
 
-def tile_contract(
+def _bad_pairs(tiles, l_idx, r_idx, seg, n_out: int) -> torch.Tensor:
+    """The pairs the tile kernel skips and flags in its fault word: not a pad (segment
+    ``n_out``) and naming a segment outside ``[0, n_out]`` or a slot
+    outside the store."""
+    S = tiles.shape[0]
+    return (seg != n_out) & (
+        (seg < 0) | (seg > n_out) | (l_idx < 0) | (l_idx >= S)
+        | (r_idx < 0) | (r_idx >= S)
+    )
+
+
+def tile_work(tile: int, cap: int, device: torch.device) -> TileWork | None:
+    """The work buffers of one block-sparse fixpoint's chunks of at most
+    ``cap`` output blocks of ``tile``-edge tiles: a :class:`TileWork` on
+    the card (allocated and zeroed once), None on the CPU, whose plain
+    version needs none."""
+    return TileWork(tile, cap, device) if device.type == "cuda" else None
+
+
+def tile_contract_chunk(
     tiles: torch.Tensor,
     l_idx: torch.Tensor,
     r_idx: torch.Tensor,
     seg: torch.Tensor,
-    out: torch.Tensor,
-) -> torch.Tensor:
-    """The block-sparse contraction step, in place: ``out[s] |= OR over
-    pairs p with seg[p] == s of tiles[l_idx[p]] x tiles[r_idx[p]]``.
-    ``tiles`` is the ``(S, B, B/32)`` slot store, the indices ``(p,)``
-    int32 (a pad pair names segment ``n_out``), ``out`` the ``(n_out, B,
-    B/32)`` old tiles of the output blocks.
-
-    Returns a ``(1,)`` int32 fault flag on ``out``'s device, nonzero when a
-    pair other than a pad named a segment outside ``[0, n_out]`` or a slot
-    outside ``tiles``; such a pair is skipped, on either device.  The flag
-    is not read here, since reading it would sync the host: the caller
-    reads it at its own sync and raises."""
+    out_slot: torch.Tensor,
+    out_exists: torch.Tensor,
+    n_out: int,
+    work: TileWork | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the block-sparse fixpoint: ``new[s] = old[s] | OR over
+    pairs p with seg[p] == s of tiles[l_idx[p]] x tiles[r_idx[p]]``, with
+    ``old[s]`` the tile of slot ``out_slot[s]`` where ``out_exists[s]``
+    and zeros elsewhere, and each output block's flags.  Returns ``(new
+    (n_out, B, B/32), flags (2m + 1,) int32)``: ``flags[s]`` is set where
+    ``new[s]`` differs from ``old[s]``, ``flags[m + s]`` where it has a set
+    bit, and the last word is the fault flag: nonzero when a pair other
+    than a pad (segment ``n_out``) named a segment outside ``[0, n_out]``
+    or a slot outside ``tiles`` (such a pair is skipped, on either device),
+    or on the card an existing output's slot lies outside ``tiles``; ``m``
+    is ``n_out`` on the CPU and the work buffers' capacity on the card.
+    On the card it is one launch into ``work`` (from :func:`tile_work`),
+    whose views it returns; nothing is read back here, so the caller reads
+    ``flags`` at its own sync."""
     global tile_launches
-    if all(t.device.type == "cpu" for t in (tiles, l_idx, r_idx, seg, out)):
-        n_out, S = out.shape[0], tiles.shape[0]
-        bad = (seg != n_out) & (
-            (seg < 0) | (seg > n_out) | (l_idx < 0) | (l_idx >= S)
-            | (r_idx < 0) | (r_idx >= S)
-        )
+    operands = (tiles, l_idx, r_idx, seg, out_slot, out_exists)
+    if all(t.device.type == "cpu" for t in operands):
+        bad = _bad_pairs(tiles, l_idx, r_idx, seg, n_out)
         ok = ~bad
-        out |= _ref.tile_contract_ref(tiles, l_idx[ok], r_idx[ok], seg[ok], n_out)
-        return bad.any().to(torch.int32).view(1)
-    fault = tile_contract_cuda(tiles, l_idx, r_idx, seg, out)
+        new, flags = _ref.tile_contract_chunk_ref(
+            tiles, l_idx[ok], r_idx[ok], seg[ok], out_slot, out_exists, n_out
+        )
+        flags[-1] = int(bad.any())
+        return new, flags
+    if work is None:
+        raise ValueError("tile_contract_chunk: a chunk on the card needs its TileWork")
+    out = tile_chunk_cuda(tiles, l_idx, r_idx, seg, out_slot, out_exists, n_out, work)
     tile_launches += 1
-    return fault
+    return out
 
 
 def tile_bitmm(lhs_tiles: torch.Tensor, rhs_tiles: torch.Tensor) -> torch.Tensor:
     """Square-tile bitpacked Boolean matmul for the block-sparse engine:
     (p, B, B//32) x (p, B, B//32) -> (p, B, B//32), one independent B×B
-    product per pair.  On the card it is the tile-contraction kernel over
-    one store of both batches, pair ``i`` taking lhs slot ``i`` and rhs
-    slot ``p + i`` into output ``i``."""
-    global tile_launches
+    product per pair.  On the card it is one chunk of the tile kernel
+    (:func:`tile_contract_chunk`) over one store of both batches, pair
+    ``i`` taking lhs slot ``i`` and rhs slot ``p + i`` into output ``i``,
+    which has no old tile."""
     if lhs_tiles.device.type == "cpu" and rhs_tiles.device.type == "cpu":
         return _ref.tile_bitmm_ref(lhs_tiles, rhs_tiles)
     if lhs_tiles.shape != rhs_tiles.shape:
@@ -101,10 +131,35 @@ def tile_bitmm(lhs_tiles: torch.Tensor, rhs_tiles: torch.Tensor) -> torch.Tensor
             f"tile_bitmm: lhs on {lhs_tiles.device} and rhs on "
             f"{rhs_tiles.device} are not CUDA tensors of one device"
         )
-    p = lhs_tiles.shape[0]
-    idx = torch.arange(p, dtype=torch.int32, device=lhs_tiles.device)
-    out = torch.zeros_like(lhs_tiles)
-    # the indices lie in the store by construction: the fault flag stays 0
-    tile_contract_cuda(torch.cat([lhs_tiles, rhs_tiles]), idx, idx + p, idx, out)
-    tile_launches += 1
+    p, dev = lhs_tiles.shape[0], lhs_tiles.device
+    idx = torch.arange(p, dtype=torch.int32, device=dev)
+    none = torch.zeros(p, dtype=torch.int32, device=dev)
+    # the indices lie in the store by construction: the fault word stays 0
+    new, _ = tile_contract_chunk(
+        torch.cat([lhs_tiles, rhs_tiles]), idx, idx + p, idx, none, none, p,
+        tile_work(lhs_tiles.shape[1], p, dev),
+    )
+    return new.clone()
+
+
+def minplus(
+    lhs: torch.Tensor,
+    base: torch.Tensor,
+    slab: torch.Tensor | None = None,
+    row: torch.Tensor | None = None,
+    acc: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The single-path closures' min-plus product with the rhs gathered by
+    index: ``out[p, i, j] = min(acc[p, i, j], min_k lhs[p, i, k] +
+    base[slab[p], row[k], j])``, (P, R, K) f32 x (S, rows, C) f32 -> a new
+    (P, R, C) f32 tensor; ``slab`` (P,) and ``row`` (K,) int64 name the rhs
+    rows of ``base`` (the identity where absent), ``acc`` (P, R, C) is only
+    read (inf where absent).  Bit-equal on either device."""
+    global minplus_launches
+    operands = [t for t in (lhs, base, slab, row, acc) if t is not None]
+    if all(t.device.type == "cpu" for t in operands):
+        return _ref.minplus_ref(lhs, base, slab, row, acc)
+    out = minplus_cuda(lhs, base, slab, row, acc)
+    if out.numel():
+        minplus_launches += 1
     return out

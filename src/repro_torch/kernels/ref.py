@@ -68,3 +68,86 @@ def tile_contract_ref(
     index = seg.long().view(-1, 1, 1).expand_as(bits)
     merged.scatter_reduce_(0, index, bits, "amax")
     return pack_bits(merged[:n_out].bool())
+
+
+def tile_contract_chunk_ref(
+    tiles: torch.Tensor,
+    l_idx: torch.Tensor,
+    r_idx: torch.Tensor,
+    seg: torch.Tensor,
+    out_slot: torch.Tensor,
+    out_exists: torch.Tensor,
+    n_out: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the block-sparse fixpoint: ``new = old |
+    tile_contract_ref(...)`` with ``old[s]`` the tile of slot
+    ``out_slot[s]`` where ``out_exists[s]``, zeros elsewhere.  Returns
+    ``(new (n_out, B, B/32), flags (2 n_out + 1,) int32)``: ``flags[s]``
+    is 1 where ``new[s]`` differs from ``old[s]``, ``flags[n_out + s]``
+    where ``new[s]`` has a set bit; the last word, the fault word of the
+    kernel's layout, is 0 (a pair out of range raises here)."""
+    old = torch.where(
+        out_exists.bool()[:, None, None], tiles[out_slot.long()], 0
+    )[:n_out]
+    new = old | tile_contract_ref(tiles, l_idx, r_idx, seg, n_out)
+    changed = (new != old).any(2).any(1)
+    nonzero = (new != 0).any(2).any(1)
+    fault = torch.zeros(1, dtype=torch.bool, device=new.device)
+    return new, torch.cat([changed, nonzero, fault]).to(torch.int32)
+
+
+#: bytes the plain min-plus product's ``(P, chunk, rows, cols)`` f32
+#: temporary may take, per device type; the chunk of the contraction axis
+#: follows from it.  On the card a large temporary means few launches; on
+#: the CPU one that stays in cache is several times faster.  The result
+#: does not depend on the chunk (each candidate is one f32 add of two
+#: lengths, and ``min`` is exact in any order).
+MINPLUS_TEMP_BYTES = {"cuda": 2 << 30, "cpu": 16 << 20}
+
+
+def minplus_chunk(P: int, rows: int, cols: int, K: int, device_type: str) -> int:
+    """Contraction chunk of :func:`minplus_ref` under ``MINPLUS_TEMP_BYTES``."""
+    per_k = 4 * max(P * rows * cols, 1)
+    return max(1, min(K, MINPLUS_TEMP_BYTES[device_type] // per_k))
+
+
+def minplus_ref(
+    lhs: torch.Tensor,
+    base: torch.Tensor,
+    slab: torch.Tensor | None = None,
+    row: torch.Tensor | None = None,
+    acc: torch.Tensor | None = None,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Batched min-plus product with the rhs gathered by index:
+    ``out[p, i, j] = min(acc[p, i, j], min_k lhs[p, i, k] + base[slab[p],
+    row[k], j])``, (P, R, K) x (S, rows, C) -> (P, R, C) f32, into a new
+    tensor (``acc`` is only read; without it the first term is inf; without
+    ``slab`` or ``row`` the index is the identity).  With both indices
+    absent and no ``acc`` it is the reference's ``_minplus(lhs, base)``.
+
+    Tiled over the contraction axis k, so the peak temporary is ``(P,
+    chunk, R, C)`` f32 plus the chunk's gathered rhs rows; ``chunk=None``
+    takes it from the device's ``MINPLUS_TEMP_BYTES``.  Lengths are never
+    negative, so no NaN can arise (``inf + x`` is ``inf``)."""
+    P, rows, K = lhs.shape
+    cols = base.shape[-1]
+    if acc is not None:
+        out = acc.clone()
+    else:
+        out = torch.full((P, rows, cols), float("inf"), dtype=torch.float32,
+                         device=lhs.device)
+    if K == 0:
+        return out
+    if chunk is None:
+        chunk = minplus_chunk(P, rows, cols, K, lhs.device.type)
+    slabs = slab if slab is not None else torch.arange(P, device=lhs.device)
+    for c0 in range(0, K, chunk):
+        ks = slice(c0, c0 + chunk)
+        idx = row[ks] if row is not None else torch.arange(
+            c0, min(c0 + chunk, K), device=lhs.device)
+        rk = base[slabs[:, None], idx[None, :]]  # (P, ch, cols)
+        lk = lhs[:, :, ks].transpose(1, 2)  # (P, ch, rows)
+        cand = (lk[:, :, :, None] + rk[:, :, None, :]).amin(dim=1)
+        torch.minimum(out, cand, out=out)
+    return out

@@ -390,7 +390,7 @@ def _u32(rng, shape, density):
 def test_tile_contract_ref_matches_reference_contract_chunk(B, p, n_out):
     """Repeated output segments, pad pairs (segment ``n_out``), outputs with
     and without a slot: the port's step — through the plain version and
-    through ``ops.tile_contract`` on the CPU — equals the reference's
+    through ``ops.tile_contract_chunk`` on the CPU — equals the reference's
     ``_contract_chunk`` with ``use_kernel=False``."""
     rng = np.random.default_rng(B * 100 + p)
     S = 16
@@ -408,16 +408,15 @@ def test_tile_contract_ref_matches_reference_contract_chunk(B, p, n_out):
     t = [torch.from_numpy(x) for x in (l_idx, r_idx, seg, out_slot)]
     ttiles = tm.from_reference(tiles, device=CPU)
     for use_kernel in (False, True):
-        got = tbs._contract_chunk(
+        new, flags = tbs._contract_chunk(
             ttiles, *t, torch.from_numpy(out_exists), n_out, use_kernel
         )
-        np.testing.assert_array_equal(tm.to_reference(got[0]), want[0])
-        np.testing.assert_array_equal(got[1].numpy(), want[1])
-        np.testing.assert_array_equal(got[2].numpy(), want[2])
-        if use_kernel:
-            assert got[3].tolist() == [0]  # no pair out of range
-        else:
-            assert got[3] is None
+        np.testing.assert_array_equal(tm.to_reference(new), want[0])
+        # flags: changed [0, n_out), nonzero [n_out, 2 n_out), fault last
+        assert flags.shape == (2 * n_out + 1,)
+        np.testing.assert_array_equal(flags[:n_out].numpy() != 0, want[1])
+        np.testing.assert_array_equal(flags[n_out:-1].numpy() != 0, want[2])
+        assert flags[-1] == 0  # no pair out of range
     packed = ref.tile_contract_ref(ttiles, *t[:3], n_out)
     old = np.where(out_exists[:, None, None], tiles[out_slot], 0)
     np.testing.assert_array_equal(tm.to_reference(packed) | old, want[0])
@@ -455,15 +454,17 @@ def test_tile_contract_flags_and_skips_a_pair_out_of_range(which, value):
            "r_idx": torch.from_numpy(rng.integers(0, S, p).astype(np.int32)),
            "seg": torch.from_numpy(rng.integers(0, n_out, p).astype(np.int32))}
     idx["seg"][-2:] = n_out  # pad pairs
-    old = tm.from_reference(_u32(rng, (n_out, 64, 2), 0.05), device=CPU)
-    got = old.clone()
-    assert ops.tile_contract(tiles, *idx.values(), got).tolist() == [0]
+    out_slot = torch.from_numpy(rng.integers(0, S, n_out).astype(np.int32))
+    exists = torch.from_numpy((rng.random(n_out) < 0.5).astype(np.int32))
+    old = torch.where(exists.bool()[:, None, None], tiles[out_slot.long()], 0)
+    _, flags = ops.tile_contract_chunk(tiles, *idx.values(), out_slot, exists, n_out)
+    assert flags[-1] == 0
     idx[which][3] = value
     ok = torch.arange(p) != 3
     want = old | ref.tile_contract_ref(
         tiles, *(t[ok] for t in idx.values()), n_out)
-    got = old.clone()
-    assert ops.tile_contract(tiles, *idx.values(), got).tolist() == [1]
+    got, flags = ops.tile_contract_chunk(tiles, *idx.values(), out_slot, exists, n_out)
+    assert flags[-1] == 1
     assert torch.equal(got, want)
 
 

@@ -275,11 +275,71 @@ def test_minplus_on_card_matches_cpu_at_every_chunk(card):
     rhs = rng.integers(1, 20, size=(3, 70, 90)).astype(np.float32)
     lhs[rng.random(lhs.shape) < 0.6] = np.inf
     rhs[rng.random(rhs.shape) < 0.6] = np.inf
-    want = _minplus(torch.from_numpy(lhs), torch.from_numpy(rhs))
+    before = ops.minplus_launches
+    got = _minplus(torch.from_numpy(lhs).to(card), torch.from_numpy(rhs).to(card))
+    assert ops.minplus_launches == before + 1  # the kernel, never the plain loop
     for chunk in (1, 3, 64, None):
-        got = _minplus(torch.from_numpy(lhs).to(card), torch.from_numpy(rhs).to(card),
-                       chunk=chunk)
+        want = _minplus(torch.from_numpy(lhs), torch.from_numpy(rhs), chunk=chunk)
         assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="the card runs the kernel"):
+        _minplus(torch.from_numpy(lhs).to(card), torch.from_numpy(rhs).to(card),
+                 chunk=3)
+
+
+def _lengths(rng, shape, finite):
+    a = rng.integers(1, 1000, size=shape).astype(np.float32)
+    a[rng.random(shape) >= finite] = np.inf
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("finite", [1e-3, 0.05, 1.0])
+@pytest.mark.parametrize("P, R, K, C", [(3, 50, 70, 90), (2, 9, 1, 1030),
+                                        (6, 33, 991, 2048)])
+def test_minplus_kernel_matches_plain_version(card, finite, P, R, K, C):
+    """Plain, index (a permuted slab, repeated unsorted rows of a larger
+    base) and acc forms, rows without a finite entry, C off a multiple of
+    4 and past one column tile: the kernel equals the plain version bit for
+    bit, and each call counts one launch."""
+    rng = np.random.default_rng(P * 100 + K)
+    lhs = _lengths(rng, (P, R, K), finite)
+    lhs[:, ::3] = float("inf")
+    rhs = _lengths(rng, (P, K, C), 0.5)
+    base = _lengths(rng, (P + 2, K + 7, C), 0.5)
+    slab = torch.from_numpy(rng.permutation(P + 2)[:P])
+    row = torch.from_numpy(rng.integers(0, K + 7, size=K))
+    acc = _lengths(rng, (P, R, C), 0.2)
+    for args, kwargs in (((lhs, rhs), {}), ((lhs, base, slab, row), {}),
+                         ((lhs, base, slab, row), {"acc": acc})):
+        want = ref.minplus_ref(*args, **kwargs)
+        before = ops.minplus_launches
+        got = ops.minplus(*(t.to(card) for t in args),
+                          **{k: v.to(card) for k, v in kwargs.items()})
+        torch.cuda.synchronize()
+        assert ops.minplus_launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_minplus_kernel_rejects_what_it_does_not_take(card):
+    lhs = torch.ones((2, 4, 8), device=card)
+    base = torch.ones((3, 8, 16), device=card)
+    row = torch.arange(8, device=card)
+    with pytest.raises(TypeError, match="not torch.float32"):
+        ops.minplus(lhs.double(), base)
+    with pytest.raises(TypeError, match="not torch.int64"):
+        ops.minplus(lhs, base, row=row.int())
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.minplus(lhs.transpose(1, 2).contiguous().transpose(1, 2), base)
+    with pytest.raises(ValueError, match="one device"):
+        ops.minplus(lhs, base.cpu())
+    with pytest.raises(ValueError, match="does not contract"):
+        ops.minplus(lhs, base[:, :7].contiguous())
+    with pytest.raises(ValueError, match="outside"):
+        ops.minplus(lhs, base, row=row + 1)
+    with pytest.raises(ValueError, match="outside"):
+        ops.minplus(lhs, base, torch.tensor([0, 3], device=card))
+    before = ops.minplus_launches
+    assert ops.minplus(lhs[:, :0], base).shape == (2, 0, 16)  # empty: no launch
+    assert ops.minplus_launches == before
 
 
 @pytest.mark.parametrize("backend", ["dense", "frontier", "bitpacked", "auto"])
@@ -308,7 +368,9 @@ def test_single_path_on_card_matches_cpu(card, backend):
         return out, state
 
     want, want_state = run("cpu")
+    before = ops.minplus_launches
     got, got_state = run("cuda")
+    assert ops.minplus_launches > before  # the closures ran the kernel
     for w, x in zip(want, got):
         if isinstance(w, list):
             assert [(r.pairs, r.paths, r.stats["cache"]) for r in x] == \
@@ -358,50 +420,82 @@ def _indices(rng, high, size, card):
 
 @pytest.mark.parametrize("B", [32, 64, 128])
 def test_tile_contract_kernel_matches_plain_version(card, B):
-    """Slot gathers, repeated output segments, pad pairs (segment n_out)
-    and old tiles in ``out``, at densities up to every bit set: the kernel
-    is word-equal to the plain version.  ``tile_bitmm`` too."""
+    """The fixpoint's chunk: slot gathers, repeated output segments, pad
+    pairs (segment n_out), old tiles gathered by slot, runs of consecutive
+    pairs sharing an lhs slot (longer than a ring half, and cut at the
+    block's 256 pairs), densities up to every bit set, several chunks
+    through one work object (each finds its buffer zeroed by the one
+    before): the new tiles and the changed and nonzero flags are
+    word-equal to ``tile_contract_chunk_ref``, one launch each.
+    ``tile_bitmm`` too."""
     rng = np.random.default_rng(40 + B)
-    for S, p, n_out, d in ((8, 1, 1, 0.05), (64, 7, 3, 0.3),
-                           (600, 512, 100, 0.01), (32, 40, 8, 1.0)):
-        tiles = _words(rng, (S, B, B), d).to(card)
-        l_idx, r_idx = _indices(rng, S, p, card), _indices(rng, S, p, card)
-        seg = _indices(rng, n_out + 1, p, card)
-        old = _words(rng, (n_out, B, B), 0.02).to(card)
-        want = old | ref.tile_contract_ref(tiles, l_idx, r_idx, seg, n_out)
-        got = old.clone()
-        before = ops.tile_launches
-        fault = ops.tile_contract(tiles, l_idx, r_idx, seg, got)
-        assert fault.tolist() == [0]
-        assert ops.tile_launches == before + 1
-        assert torch.equal(got, want), (S, p, n_out, d)
+    work = ops.tile_work(B, 512, card)
+    for S, p, n_out, d, run in ((8, 1, 1, 0.05, 1), (64, 7, 4, 0.3, 3),
+                                (600, 512, 100, 0.01, 1), (600, 512, 128, 0.01, 40),
+                                (32, 40, 8, 1.0, 5), (16, 300, 8, 0.1, 300)):
+        tiles = _words(rng, (S, B, B), d)
+        l_idx = torch.from_numpy(
+            rng.integers(0, S, -(-p // run)).astype(np.int32).repeat(run)[:p])
+        r_idx, seg = _indices(rng, S, p, "cpu"), _indices(rng, n_out, p, "cpu")
+        if p >= 4:
+            seg[-(p // 4):] = n_out  # pad pairs
+        out_slot = _indices(rng, S, n_out, "cpu")
+        exists = torch.from_numpy((rng.random(n_out) < 0.5).astype(np.int32))
+        want, want_flags = ref.tile_contract_chunk_ref(
+            tiles, l_idx, r_idx, seg, out_slot, exists, n_out)
+        for _ in range(2):
+            before = ops.tile_launches
+            new, flags = ops.tile_contract_chunk(
+                *(t.to(card) for t in (tiles, l_idx, r_idx, seg, out_slot, exists)),
+                n_out, work)
+            flags = flags.cpu()
+            assert ops.tile_launches == before + 1
+            assert torch.equal(new.cpu(), want), (S, p, n_out, d, run)
+            assert torch.equal(flags[:n_out], want_flags[:n_out])
+            assert torch.equal(flags[512:512 + n_out], want_flags[n_out:-1])
+            assert int(flags[-1]) == 0
     lhs = _words(rng, (9, B, B), 0.1).to(card)
     rhs = _words(rng, (9, B, B), 0.1).to(card)
+    before = ops.tile_launches
     assert torch.equal(ops.tile_bitmm(lhs, rhs), ref.bitmm_ref(lhs, rhs))
+    assert ops.tile_launches == before + 1
 
 
 def test_tile_kernel_rejects_what_it_does_not_take(card):
     tiles = torch.zeros((8, 128, 4), dtype=torch.int32, device=card)
     idx = torch.zeros(4, dtype=torch.int32, device=card)
-    out = torch.zeros((2, 128, 4), dtype=torch.int32, device=card)
+    work = ops.tile_work(128, 512, card)
+
+    def chunk(tiles=tiles, l_idx=idx, r_idx=idx, seg=idx, out_slot=idx[:2],
+              work=work):
+        return ops.tile_contract_chunk(tiles, l_idx, r_idx, seg, out_slot,
+                                       idx[:2], 2, work)
+
     with pytest.raises(TypeError, match="not torch.int32"):
-        ops.tile_contract(tiles.long(), idx, idx, idx, out)
+        chunk(tiles=tiles.long())
     with pytest.raises(TypeError, match="not torch.int32"):
-        ops.tile_contract(tiles, idx.long(), idx, idx, out)
+        chunk(l_idx=idx.long())
     with pytest.raises(ValueError, match="not CUDA"):
-        ops.tile_contract(tiles, idx.cpu(), idx, idx, out)
+        chunk(r_idx=idx.cpu())
     with pytest.raises(ValueError, match="tiles must be"):
-        ops.tile_contract(tiles[:, :96, :3].contiguous(), idx, idx, idx,
-                          out[:, :96, :3].contiguous())
+        chunk(tiles=tiles[:, :96, :3].contiguous(),
+              work=ops.tile_work(96, 512, card))
+    with pytest.raises(ValueError, match="the output tiles are"):
+        chunk(tiles=tiles[:, :64, :2].contiguous())
     with pytest.raises(ValueError, match="differ"):
-        ops.tile_contract(tiles, idx, idx[:3], idx, out)
+        chunk(r_idx=idx[:3])
     with pytest.raises(ValueError, match="not contiguous"):
-        ops.tile_contract(tiles, idx, idx, idx, out.transpose(0, 1))
+        chunk(tiles=tiles.transpose(0, 1))
+    with pytest.raises(ValueError, match="needs its TileWork"):
+        chunk(work=None)
+    with pytest.raises(ValueError, match="work buffers hold"):
+        ops.tile_contract_chunk(tiles, idx, idx, idx, idx, idx, 4,
+                                ops.tile_work(128, 2, card))
     with pytest.raises(ValueError, match="not CUDA"):
         ops.tile_bitmm(tiles.cpu(), tiles)
     before = ops.tile_launches
     with pytest.raises(ValueError, match="empty bucket"):
-        ops.tile_contract(tiles, idx[:0], idx[:0], idx[:0], out)
+        chunk(l_idx=idx[:0], r_idx=idx[:0], seg=idx[:0])
     assert ops.tile_launches == before
 
 
@@ -409,22 +503,25 @@ def test_tile_kernel_rejects_what_it_does_not_take(card):
     ("seg", -1), ("seg", 3), ("l_idx", -1), ("l_idx", 8), ("r_idx", 8),
 ])
 def test_tile_kernel_flags_a_pair_out_of_range_as_the_cpu_does(card, which, value):
-    """A pair out of range is skipped and raises the fault flag on the card
-    exactly as on the CPU; the other pairs are contracted."""
+    """A pair out of range is skipped and raises the fault word on the card
+    exactly as on the CPU; the other pairs, in runs sharing an lhs slot,
+    are contracted."""
     rng = np.random.default_rng(41)
     tiles = _words(rng, (8, 128, 128), 0.1)
-    idx = {"l_idx": _indices(rng, 8, 6, "cpu"),
+    idx = {"l_idx": _indices(rng, 8, 6, "cpu").repeat_interleave(2)[:6],
            "r_idx": _indices(rng, 8, 6, "cpu"), "seg": _indices(rng, 2, 6, "cpu")}
     idx["seg"][-1] = 2  # a pad pair
     idx[which][1] = value
-    old = _words(rng, (2, 128, 128), 0.02)
-    want = old.clone()
-    assert ops.tile_contract(tiles, *idx.values(), want).tolist() == [1]
-    got = old.to(card)
-    fault = ops.tile_contract(tiles.to(card), *(t.to(card) for t in idx.values()),
-                              got)
-    assert fault.tolist() == [1]
-    assert torch.equal(got.cpu(), want)
+    out_slot = _indices(rng, 8, 2, "cpu")
+    exists = torch.tensor([1, 0], dtype=torch.int32)
+    want, want_flags = ops.tile_contract_chunk(tiles, *idx.values(), out_slot,
+                                               exists, 2)
+    assert int(want_flags[-1]) == 1
+    new, flags = ops.tile_contract_chunk(
+        *(t.to(card) for t in (tiles, *idx.values(), out_slot, exists)), 2,
+        ops.tile_work(128, 512, card))
+    assert int(flags[-1]) == 1
+    assert torch.equal(new.cpu(), want)
 
 
 def test_blocksparse_closure_state_on_card_matches_cpu(card):
@@ -441,3 +538,42 @@ def test_blocksparse_closure_state_on_card_matches_cpu(card):
     assert ops.tile_launches > before
     assert got.coords == want.coords and got.index == want.index
     assert torch.equal(got.tiles.cpu(), want.tiles)
+
+
+@pytest.mark.parametrize("which, value", [
+    ("seg", -1), ("seg", 3), ("l_idx", -1), ("l_idx", 8), ("r_idx", 8),
+    ("out_slot", 8),
+])
+def test_tile_chunk_mode_flags_a_pair_out_of_range(card, which, value):
+    """In chunk mode too a pair (or an output's slot) out of range raises
+    the fault word, and the block-sparse fixpoint raises on it at its
+    chunk sync, as on the CPU."""
+    rng = np.random.default_rng(43)
+    tiles = _words(rng, (8, 128, 128), 0.1).to(card)
+    idx = {"l_idx": _indices(rng, 8, 6, card), "r_idx": _indices(rng, 8, 6, card),
+           "seg": _indices(rng, 2, 6, card), "out_slot": _indices(rng, 8, 2, card)}
+    exists = torch.ones(2, dtype=torch.int32, device=card)
+    idx["seg"][-1] = 2  # a pad pair
+    idx[which][1] = value
+    work = ops.tile_work(128, 512, card)
+    _, flags = ops.tile_contract_chunk(
+        tiles, idx["l_idx"], idx["r_idx"], idx["seg"], idx["out_slot"], exists, 2,
+        work)
+    assert int(flags[-1]) == 1
+
+
+def test_fixpoint_on_card_raises_on_a_pair_out_of_range(card, monkeypatch):
+    from repro_torch.core import blocksparse as tbs
+
+    graph = paper_table_graph("pizza")
+    g = query1_grammar().to_cnf()
+    operands = tbs._chunk_operands
+
+    def bad_operands(state, chunk, device):
+        out = operands(state, chunk, device)
+        out[3][0] = state.tiles.shape[0]  # an lhs slot past the store
+        return out
+
+    monkeypatch.setattr(tbs, "_chunk_operands", bad_operands)
+    with pytest.raises(RuntimeError, match="outside its range"):
+        tbs.blocksparse_closure_state(graph, g, tile=64, device=card)

@@ -42,6 +42,7 @@ from repro_torch.core import graph as tgraph
 from repro_torch.core import matrices as tm
 from repro_torch.core import semantics as ts
 from repro_torch.engine import EngineConfig, Query, QueryEngine
+from repro_torch.kernels import ref as kref
 from helpers import assert_path_witness
 from torch_helpers import CASES, NAMED_CASES, case
 
@@ -75,12 +76,13 @@ def test_minplus_matches_reference_at_every_chunk(shape, chunk):
 
 
 def test_minplus_chunk_follows_the_memory_budget():
+    # the plain product's chunk (kernels/ref.py, which ts._minplus runs)
     per_k = 4 * 6 * 1024 * 15872
-    for dev, budget in ts.MINPLUS_TEMP_BYTES.items():
-        assert ts.minplus_chunk(6, 1024, 15872, 1024, dev) == max(1, budget // per_k)
-        assert ts.minplus_chunk(1, 2, 3, 7, dev) == 7  # small operands: one chunk
-        assert ts.minplus_chunk(6, 15872, 15872, 15872, dev) == 1  # never below 1
-    assert ts.minplus_chunk(6, 1024, 15872, 1024, "cuda") == 5
+    for dev, budget in kref.MINPLUS_TEMP_BYTES.items():
+        assert kref.minplus_chunk(6, 1024, 15872, 1024, dev) == max(1, budget // per_k)
+        assert kref.minplus_chunk(1, 2, 3, 7, dev) == 7  # small operands: one chunk
+        assert kref.minplus_chunk(6, 15872, 15872, 15872, dev) == 1  # never below 1
+    assert kref.minplus_chunk(6, 1024, 15872, 1024, "cuda") == 5
 
 
 def test_init_lengths_equals_base_lengths_of_the_base_matrix():
