@@ -5,7 +5,8 @@
 Builds the port's hand-written CUDA kernels (``bitmm`` and ``bitmm_or``
 from csrc/bitmm.cu, the block-sparse backend's ``tile_contract`` from
 csrc/tile_bitmm.cu, the single-path closures' ``minplus`` from
-csrc/minplus.cu; one nvcc per source, started together) from this
+csrc/minplus.cu, the count closures' ``count_mm`` from csrc/count_mm.cu;
+one nvcc per source, started together) from this
 checkout and fails if ptxas reports a spill in any template instance;
 holds each kernel against its plain torch version on the card (``bitmm``
 and ``bitmm_or`` through their compiled-in path threshold and with each of
@@ -42,7 +43,18 @@ time beside the wall time and the device operations per chunk (from
 its bucket shape.
 Then ``serve_open_loop``: 512 requests at 200 offered queries/s through
 ``repro_torch.serve.CFPQServer`` with a fenced write halfway, every
-answer checked against Hellings at the epoch it reports.  Last, the
+answer checked against Hellings at the epoch it reports.  Then the
+conjunctive semantics (a same-generation grammar of 14 conjuncts at the
+main path's size on dense, bitpacked and auto, Query 1 as a conjunctive
+grammar, an insert-only edit repaired and a delete dropped, the
+a^n b^n c^n golden chain; against Hellings of its two CFG halves) and
+the count semantics (Query 1's path counts at the main path's size
+through the engine, (7, 15,872, 15,872) uint32 planes, against a scipy
+Jacobi on one copy; a recount after an insert, a drop after a delete,
+the saturation goldens, bounded all-path enumeration checked by CYK),
+with ``count_mm`` held bit-equal to its plain version on 45 random cases
+and on both real states and timed at the all-pairs and the 16-source
+shapes beside its bound, its plain version and a float64 matmul.  Last, the
 kernels are timed at the main path's shapes (one call, device time, with
 L2 cold, and per path) and over a density sweep that shows where the two
 paths cross.  ``--baseline-cu`` names another revision's kernel source (say, the
@@ -73,6 +85,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
+BASE_GRAPH = "pizza"  # the full-width graph is BASE_GRAPH x PIZZA_COPIES
 PIZZA_COPIES = 16
 PIZZA_S_PAIRS = 313  # Query 1's S-pairs on one pizza copy (Hellings)
 
@@ -217,32 +230,42 @@ def minplus_instances(log: str) -> list[dict]:
         lambda vec, acc: f"minplus_kernel<{_flag(vec)}, {_flag(acc)}>")
 
 
+def count_instances(log: str) -> list[dict]:
+    """``count_mm_kernel<kVec, kAcc>`` of the saturating count kernel."""
+    return kernel_instances(
+        log, r"count_mm_kernelILb(\d)ELb(\d)E",
+        lambda vec, acc: f"count_mm_kernel<{_flag(vec)}, {_flag(acc)}>")
+
+
 def phase_build() -> None:
-    """The three kernel sources, one nvcc each, started together."""
+    """The four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import bitmm as kbitmm
+    from repro_torch.kernels import count_mm as kcount
     from repro_torch.kernels import minplus as kminplus
     from repro_torch.kernels import tile_bitmm as ktile
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        (_, info), (_, tinfo), (_, minfo) = pool.map(
-            kbitmm.load, (kbitmm.SOURCE, ktile.SOURCE, kminplus.SOURCE),
-            (kbitmm.ENTRIES, ktile.ENTRIES, kminplus.ENTRIES))
+    with ThreadPoolExecutor(4) as pool:
+        (_, info), (_, tinfo), (_, minfo), (_, cinfo) = pool.map(
+            kbitmm.load, (kbitmm.SOURCE, ktile.SOURCE, kminplus.SOURCE, kcount.SOURCE),
+            (kbitmm.ENTRIES, ktile.ENTRIES, kminplus.ENTRIES, kcount.ENTRIES))
     wall_s = time.perf_counter() - t0
     instances = ptxas_instances(info["log"])
     tinstances = tile_instances(tinfo["log"])
     minstances = minplus_instances(minfo["log"])
-    logs = (info["log"], tinfo["log"], minfo["log"])
+    cinstances = count_instances(cinfo["log"])
+    logs = (info["log"], tinfo["log"], minfo["log"], cinfo["log"])
     emit(
-        "build", kernels=["bitmm", "bitmm_or", "tile_contract", "minplus"],
+        "build", kernels=["bitmm", "bitmm_or", "tile_contract", "minplus", "count_mm"],
         wall_s=wall_s,
         seconds={"bitmm": info["seconds"], "tile_bitmm": tinfo["seconds"],
-                 "minplus": minfo["seconds"]},
-        library=[Path(i["path"]).name for i in (info, tinfo, minfo)],
+                 "minplus": minfo["seconds"], "count_mm": cinfo["seconds"]},
+        library=[Path(i["path"]).name for i in (info, tinfo, minfo, cinfo)],
         sparse_max_bits=kbitmm.sparse_max_bits(), instances=instances,
         tile_instances=tinstances, minplus_instances=minstances,
+        count_instances=cinstances,
         ptxas=[ln for ln in "\n".join(logs).splitlines() if ln],
     )
     check(len(instances) == 6, f"ptxas reported {len(instances)} kernel "
@@ -252,7 +275,10 @@ def phase_build() -> None:
     check(len(minstances) == 4, f"ptxas reported {len(minstances)} min-plus "
           "kernel instances, want 4 (16-byte or single columns, with or "
           "without acc)")
-    for inst in instances + tinstances + minstances:
+    check(len(cinstances) == 4, f"ptxas reported {len(cinstances)} count "
+          "kernel instances, want 4 (16-byte or single columns, with or "
+          "without acc)")
+    for inst in instances + tinstances + minstances + cinstances:
         check(inst.get("spill_stores") == 0 and inst.get("spill_loads") == 0,
               f"ptxas reports spills in {inst}")
 
@@ -465,7 +491,7 @@ def shifted_oracle() -> set[tuple[int, int]]:
     from repro_torch.core.grammar import query1_grammar
     from repro_torch.core.graph import paper_table_graph
 
-    base = paper_table_graph("pizza")
+    base = paper_table_graph(BASE_GRAPH)
     rel = hellings_cfpq(base, query1_grammar().to_cnf())["S"]
     off = base.n_nodes
     return {(i + t * off, j + t * off) for t in range(PIZZA_COPIES) for i, j in rel}
@@ -474,20 +500,23 @@ def shifted_oracle() -> set[tuple[int, int]]:
 def reset_launches() -> None:
     from repro_torch.kernels import ops
 
-    ops.launches = ops.or_launches = ops.tile_launches = ops.minplus_launches = 0
+    ops.launches = ops.or_launches = ops.tile_launches = 0
+    ops.minplus_launches = ops.count_mm_launches = 0
 
 
 def read_launches() -> dict:
     from repro_torch.kernels import ops
 
     return {"bitmm": ops.launches, "bitmm_or": ops.or_launches,
-            "tile_contract": ops.tile_launches, "minplus": ops.minplus_launches}
+            "tile_contract": ops.tile_launches, "minplus": ops.minplus_launches,
+            "count_mm": ops.count_mm_launches}
 
 
 def run_phase(fn):
     """Run ``fn`` with the kernel counts at 0 and the peak memory reset;
     returns (result, wall ms, ``{"bitmm": .., "bitmm_or": ..,
-    "tile_contract": .., "minplus": ..}`` launches in the run)."""
+    "tile_contract": .., "minplus": .., "count_mm": ..}`` launches in the
+    run)."""
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2160,6 +2189,546 @@ def phase_serve(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------- #
+# conjunctive and count semantics at full width, and the count kernel
+# ---------------------------------------------------------------------- #
+
+CONJ_SOURCES = 256  # single-source conjunctive queries per batch
+COUNT_SOURCES = 16  # single-source count queries, all in copy 0
+ANBNCN = 256  # the golden chain a^n b^n c^n
+SAT = 0xFFFFFFFF
+COUNT_KINDS = ("small", "2^16", "sat")  # count values of the kernel checks
+
+
+def same_generation_grammar():
+    """"Same generation by subclass and by type" as a conjunctive grammar:
+    S holds where G = subClassOf_r^k subClassOf^k and H = type_r^m type^m
+    both do — 9 nonterminals, 14 flattened conjuncts."""
+    from repro_torch.core.conjunctive import ConjunctiveGrammar
+
+    return ConjunctiveGrammar.from_rules(
+        {"subClassOf_r": ["Sr"], "subClassOf": ["Sc"], "type_r": ["Tr"],
+         "type": ["Ty"]},
+        [("S", [("Sr", "Gc"), ("Tr", "Hc")]), ("S", [("Sr", "Gc"), ("Tr", "Ty")]),
+         ("S", [("Sr", "Sc"), ("Tr", "Hc")]), ("S", [("Sr", "Sc"), ("Tr", "Ty")]),
+         ("G", [("Sr", "Gc")]), ("G", [("Sr", "Sc")]), ("Gc", [("G", "Sc")]),
+         ("H", [("Tr", "Hc")]), ("H", [("Tr", "Ty")]), ("Hc", [("H", "Ty")])])
+
+
+def conjunctive_of(g):
+    """A CNF grammar as a conjunctive one, one conjunct per production."""
+    from repro_torch.core.conjunctive import ConjunctiveGrammar
+
+    name = g.nonterms
+    return ConjunctiveGrammar.from_rules(
+        {x: [name[a] for a in lhss] for x, lhss in g.term_prods.items()},
+        [(name[a], [(name[b], name[c])]) for a, b, c in g.binary_prods])
+
+
+def anbncn_grammar():
+    """{a^n b^n c^n}, the non-context-free golden language."""
+    from repro_torch.core.conjunctive import ConjunctiveGrammar
+
+    return ConjunctiveGrammar.from_rules(
+        {"a": ["A"], "b": ["B"], "c": ["C"]},
+        [("S", [("AB", "C"), ("A", "BC")]), ("S", [("AB", "Cp"), ("Ap", "BC")]),
+         ("AB", [("A", "B")]), ("AB", [("A", "ABb")]), ("ABb", [("AB", "B")]),
+         ("BC", [("B", "C")]), ("BC", [("B", "BCc")]), ("BCc", [("BC", "C")]),
+         ("Cp", [("C", "C")]), ("Cp", [("C", "Cp")]), ("Ap", [("A", "A")]),
+         ("Ap", [("A", "Ap")])])
+
+
+def _copy_graph(graph, copy: int, off: int):
+    """Pizza copy ``copy`` of ``graph`` alone, in local ids."""
+    from repro_torch.core.graph import Graph
+
+    lo = copy * off
+    edges = [(i - lo, x, j - lo) for i, x, j in graph.edges if lo <= i < lo + off]
+    check(all(0 <= j < off for _, _, j in edges), "an edge leaves its copy")
+    return Graph(off, edges)
+
+
+def conj_copy_oracle(graph, copy: int, off: int) -> set[tuple[int, int]]:
+    """The exact S-pairs of the same-generation grammar on one copy, in
+    global ids: the AND at the top is over exact CFG relations, so it is
+    Hellings(G) and Hellings(H) intersected."""
+    from repro_torch.baselines.hellings import hellings_cfpq
+    from repro_torch.core.grammar import Grammar
+
+    one = _copy_graph(graph, copy, off)
+    rel = {}
+    for nt, (up, down) in (("G", ("subClassOf_r", "subClassOf")),
+                           ("H", ("type_r", "type"))):
+        g = Grammar.from_text(f"{nt} -> {up} {nt} {down} | {up} {down}").to_cnf()
+        rel[nt] = hellings_cfpq(one, g)[nt]
+    lo = copy * off
+    return {(i + lo, j + lo) for i, j in rel["G"] & rel["H"]}
+
+
+def traced_call(eng, fn):
+    """Run ``fn`` (one engine call) under :func:`run_phase`; returns (its
+    result, the phase line's fields: wall and ``closure.execute`` ms, the
+    ms from each closure call's start to its first iteration event (for a
+    count closure: the support and divergence phases and one Jacobi
+    iteration), closure calls, iterations, the kernels' launches, peak
+    memory)."""
+    first = len(eng.tracer.spans)
+    out, ms, launches = run_phase(fn)
+    spans = [s for s in eng.tracer.spans[first:] if s.name == "closure.execute"]
+    return out, {
+        "wall_ms": ms, "closure_execute_ms": span_ms(eng.tracer, first, "closure.execute"),
+        "to_first_iteration_ms": 1e3 * sum(
+            next(e["t"] for e in s.events if e["name"] == "iteration") - s.t_start
+            for s in spans if any(e["name"] == "iteration" for e in s.events)),
+        "closure_engine": [s.attrs["engine"] for s in spans],
+        "closure_calls": sum(s.attrs.get("calls", 0) for s in spans),
+        "iterations": sum(1 for s in spans for e in s.events if e["name"] == "iteration"),
+        "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_conjunctive(dev) -> dict:
+    """Conjunctive CFPQ at full width (BASE_GRAPH x PIZZA_COPIES) with the
+    same-generation grammar: all pairs on dense and bitpacked, 256 sources
+    on bitpacked and auto, Query 1 as a conjunctive grammar against the
+    relational Query 1 pairs, an insert-only edit of copy 0 (repaired in
+    place) and an edit with a delete (the state dropped), each against the
+    oracle; then the a^n b^n c^n golden chain (n = 256) on both backends.
+    Every call routed to bitpacked must launch ``bitmm``.  Returns the
+    ``bitmm`` launches of the phase."""
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import Graph, paper_table_graph
+    from repro_torch.engine import EngineConfig, Query, QueryEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    base = paper_table_graph(BASE_GRAPH)
+    off = base.n_nodes
+    graph = base.repeat(PIZZA_COPIES)
+    cg = same_generation_grammar()
+    t0 = time.perf_counter()
+    one = conj_copy_oracle(base, 0, off)
+    oracle = {(i + t * off, j + t * off) for t in range(PIZZA_COPIES) for i, j in one}
+    emit("conjunctive_oracle", pairs_per_copy=len(one), pairs=len(oracle),
+         nonterminals=len(cg.nonterms), conjuncts=sum(len(p) for _, p in cg.conj_prods),
+         seconds=time.perf_counter() - t0)
+
+    def engine_of(name, gr=graph):
+        return QueryEngine(gr, config=EngineConfig(engine=name, device=str(dev)),
+                           metrics=MetricsRegistry(), tracer=Tracer())
+
+    calls, launches = {}, 0
+
+    def serve(label, eng, queries, want):
+        nonlocal launches
+        outs, fields = traced_call(eng, lambda: eng.query_batch(queries))
+        for q, r in zip(queries, outs):
+            rows = want if q.sources is None else {p for p in want if p[0] in q.sources}
+            check(r.pairs == rows, f"conjunctive {label}: pairs != oracle "
+                  f"(sources {q.sources})")
+        route = (outs[0].stats.planner or {}).get("label")
+        if route is not None and route.startswith("bitpacked"):
+            check(fields["launches"]["bitmm"] > 0,
+                  f"conjunctive {label}: routed to {route} but bitmm never launched")
+        launches += fields["launches"]["bitmm"]
+        calls[label] = {"route": route, "cache": outs[0].stats.cache,
+                        "pairs": sum(len(r.pairs) for r in outs), **fields}
+        return outs
+
+    all_pairs = [Query(cg, "S", semantics="conjunctive")]
+    for backend in ("dense", "bitpacked"):
+        eng = engine_of(backend)
+        serve(f"allpairs_{backend}", eng, all_pairs, oracle)
+        if backend == "dense":
+            del eng
+            torch.cuda.empty_cache()
+    (st,) = eng._states.values()
+    calls["allpairs_bitpacked"]["state_bytes"] = st.T.numel()
+    sources = np.random.default_rng(5).choice(graph.n_nodes, CONJ_SOURCES, replace=False)
+    batch = [Query(cg, "S", sources=(int(s),), semantics="conjunctive") for s in sources]
+    for backend in ("bitpacked", "auto"):
+        serve(f"batch_{backend}", engine_of(backend), batch, oracle)
+    q1 = conjunctive_of(query1_grammar().to_cnf())
+    serve("query1_bitpacked", engine_of("bitpacked"),
+          [Query(q1, "S", semantics="conjunctive")], shifted_oracle())
+
+    # edits of copy 0 on the cached all-pairs bitpacked state
+    labels = ["subClassOf_r", "subClassOf", "type_r", "type"]
+    rng = np.random.default_rng(9)
+    inserts = [(int(rng.integers(off)), labels[int(rng.integers(4))],
+                int(rng.integers(off))) for _ in range(3)]
+    edits = {}
+    for label, insert, delete in (
+            ("insert", inserts, []),
+            ("delete", [], [e for e in graph.edges if e[0] < off][:2])):
+        first = len(eng.tracer.spans)
+        dst, ms, dl = run_phase(lambda: eng.apply_delta(insert=insert, delete=delete))
+        want = {p for p in oracle if p[0] >= off} | conj_copy_oracle(graph, 0, off)
+        if label == "insert":
+            check(dst.conj_repairs == 1 and dst.conj_drops == 0,
+                  f"conjunctive insert-only edit: {dst}")
+            check(dl["bitmm"] > 0, "the conjunctive repair never launched bitmm")
+        else:
+            check(dst.conj_drops == 1 and dst.conj_repairs == 0,
+                  f"conjunctive edit with a delete: {dst}")
+        edits[label] = {"apply_delta_ms": ms, "launches": dl,
+                        "repair_closure_execute_ms": span_ms(eng.tracer, first,
+                                                             "closure.execute"),
+                        **dst.as_dict()}
+        launches += dl["bitmm"]
+        outs = serve(f"after_{label}", eng, all_pairs, want)
+        check(outs[0].stats.cache == ("hit" if label == "insert" else "miss"),
+              f"conjunctive after the {label} edit: cache {outs[0].stats.cache}")
+        oracle = want
+    del eng, st
+    torch.cuda.empty_cache()
+
+    # the golden chain: exactly the pair (0, 3n) is in {a^n b^n c^n}
+    word = "a" * ANBNCN + "b" * ANBNCN + "c" * ANBNCN
+    chain = Graph(len(word) + 1, [(i, ch, i + 1) for i, ch in enumerate(word)])
+    abc = anbncn_grammar()
+    for backend in ("dense", "bitpacked"):
+        serve(f"anbncn_{backend}", engine_of(backend, chain),
+              [Query(abc, "S", semantics="conjunctive")], {(0, len(word))})
+    emit("conjunctive", n=graph.n_nodes, calls=calls, edits=edits, bitmm_launches=launches,
+         golden={"n": ANBNCN, "pairs": [[0, len(word)]]})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def count_copy_oracle(base, g) -> tuple[dict, int]:
+    """Path counts of Query 1's S on one copy: the int64 Jacobi iteration
+    of C = C0 + sum over A -> B C of C[B] C[C] with scipy.sparse, from C0
+    (one per edge and derived label) to its fixpoint.  Returns ({(i, j):
+    count}, iterations); fails if it does not converge."""
+    import scipy.sparse as sp
+
+    n = base.n_nodes
+    C0 = []
+    for a in range(g.n_nonterms):
+        ij = [(i, j) for i, x, j in base.edges if a in g.term_prods.get(x, ())]
+        rows, cols = zip(*ij) if ij else ((), ())
+        C0.append(sp.csr_matrix((np.ones(len(ij), np.int64), (rows, cols)), shape=(n, n)))
+    C = C0
+    for it in range(1, 1000):
+        nxt = []
+        for a in range(g.n_nonterms):
+            m = C0[a].copy()
+            for pa, b, c in g.binary_prods:
+                if pa == a:
+                    m = m + C[b] @ C[c]
+            nxt.append(m.tocsr())
+        if all((x != y).nnz == 0 for x, y in zip(nxt, C)):
+            break
+        C = nxt
+    else:
+        raise AssertionError("the count oracle's Jacobi did not converge")
+    S = C[g.index_of("S")].tocoo()
+    return {(int(i), int(j)): int(v) for i, j, v in zip(S.row, S.col, S.data) if v}, it
+
+
+def random_counts(gen, shape, nonzero: float, kind: str, dev) -> torch.Tensor:
+    """uint32 counts in int32 storage (see COUNT_KINDS), 0 outside a share
+    ``nonzero`` of the entries."""
+    from repro_torch.kernels.ref import as_storage
+
+    if kind == "small":
+        x = torch.randint(1, 50, shape, generator=gen, device=dev)
+    elif kind == "2^16":
+        x = torch.randint(2**16 - 40, 2**16 + 40, shape, generator=gen, device=dev)
+    else:
+        x = torch.full(shape, SAT, dtype=torch.int64, device=dev)
+    keep = torch.rand(shape, generator=gen, device=dev) < nonzero
+    return as_storage(torch.where(keep, x, 0))
+
+
+def phase_count_checks(dev) -> int:
+    """The count kernel against its plain version, ``torch.equal``: every
+    shape of MINPLUS_SHAPES at non-zero shares 1e-4, 1e-2 and 1, with a
+    quarter of the lhs rows zero, values small, near 2^16 (the products
+    pass 2^32) or SAT (COUNT_KINDS, in turn); each plain, in the index form
+    (rhs rows of a larger base named by a permuted slab index and a
+    repeated, unsorted row index) and in the acc form.  Returns the cases."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    cases = 0
+    for si, (P, R, K, C) in enumerate(MINPLUS_SHAPES):
+        for di, d in enumerate(MINPLUS_DENSITIES):
+            kind = COUNT_KINDS[(si + di) % len(COUNT_KINDS)]
+            lhs = random_counts(gen, (P, R, K), d, kind, dev)
+            lhs[:, ::4] = 0  # rows without a non-zero entry
+            rhs = random_counts(gen, (P, K, C), 0.5, kind, dev)
+            base = random_counts(gen, (P + 1, K + 3, C), 0.5, kind, dev)
+            slab = torch.randperm(P + 1, generator=gen, device=dev)[:P]
+            row = torch.randint(0, K + 3, (K,), generator=gen, device=dev)
+            acc = random_counts(gen, (P, R, C), 0.3, kind, dev)
+            for form, args, kwargs in (
+                    ("plain", (lhs, rhs), {}),
+                    ("index", (lhs, base, slab, row), {}),
+                    ("acc", (lhs, base, slab, row), {"acc": acc})):
+                got = ops.count_mm(*args, **kwargs)
+                check(torch.equal(got, ref.count_mm_ref(*args, **kwargs)),
+                      f"count_mm != its plain version: {(P, R, K, C)}, "
+                      f"non-zero {d}, {kind}, {form}")
+                cases += 1
+            del lhs, rhs, base, acc
+    torch.cuda.synchronize()
+    emit("count_checks", kernel="count_mm", cases=cases, max_abs_err=0,
+         shapes=[list(x) for x in MINPLUS_SHAPES], densities=MINPLUS_DENSITIES,
+         kinds=COUNT_KINDS, tolerance="bit equality (torch.equal)")
+    return cases
+
+
+def count_bound(lhs, base, slab, row, acc) -> dict:
+    """Least time of ``ops.count_mm(lhs, base, slab, row, acc)``: the
+    larger of bytes over HBM and operations (a multiply and an add per
+    non-zero lhs entry per output column) over the int32 rate, counting
+    what the inputs need: the lhs, acc and the output once, and of the rhs
+    only the rows (slab[p], row[k]) that some non-zero lhs entry names."""
+    P, R, K = lhs.shape
+    C = base.shape[-1]
+    nz = lhs != 0
+    nnz = int(nz.sum())
+    keys = (slab[:, None] * base.shape[1] + row[None, :])[nz.any(dim=1)]
+    rhs_rows = int(torch.unique(keys).numel())
+    n_bytes = 4 * (lhs.numel() + rhs_rows * C + 2 * P * R * C)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * nnz * C / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "nonzero_lhs": nnz, "rhs_rows_read": rhs_rows}
+
+
+def count_mm_timing(label: str, state) -> dict:
+    """One Jacobi product of the count closure on a served state, as the
+    closure makes it: the production whose lhs has the most non-zero
+    entries, lhs (1, R, R) the active block of its B plane, rhs the rows of
+    its C plane of the state named in place, acc its LHS's base rows.
+    Checked against the plain version (on the first 64 rows when R is
+    larger than 1,024, where the plain version would take minutes) and
+    against a float64 ``torch.matmul`` of the same operands (exact while
+    every sum stays below 2^53); timed: one call, device time of launches
+    back to back, the plain version (on the 64 rows past R = 1,024), the
+    float64 matmul (the library yardstick, which the port never calls)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.count_mm import count_mm_launch
+
+    C, tables = state.cnt_C, state.tables
+    idx = torch.from_numpy(np.nonzero(state.cnt_mask)[0]).to(C.device)
+    b_idx, c_idx = tables.index_tensors(C.device)
+    nnz = [int((C[b][idx][:, idx] != 0).sum()) for b in tables.b_idx]
+    p = int(np.argmax(nnz))
+    lhs = C[b_idx[p]][idx][:, idx][None].contiguous()
+    slab = c_idx[p:p + 1]
+    acc = state.cnt_base[tables.a_idx[p]][idx][None].contiguous()
+    R = lhs.shape[1]
+    out = ops.count_mm(lhs, C, slab, idx, acc)
+    rows = slice(None) if R <= 1024 else slice(0, 64)
+    plain_args = (lhs[:, rows].contiguous(), C, slab, idx, acc[:, rows].contiguous())
+    want = ref.count_mm_ref(*plain_args)
+    check(torch.equal(out[:, rows], want), f"count_mm != its plain version on the "
+          f"{label} state")
+    L64 = ref.as_unsigned(lhs).double()
+    R64 = ref.as_unsigned(C[slab][:, idx]).double()
+    got64 = (torch.matmul(L64, R64) + ref.as_unsigned(acc)).clamp(max=SAT).long()
+    check(torch.equal(ref.as_storage(got64), out), f"the float64 matmul != count_mm "
+          f"on the {label} state")
+    del got64
+    bnd = count_bound(lhs, C, slab, idx, acc)
+    row = {
+        "name": "count_mm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/count_mm.cu",
+        "replaces": "src/repro/core/semantics.py:695",
+        "launches": None, "max_abs_err": 0,
+        "ms": time_ms(lambda: ops.count_mm(lhs, C, slab, idx, acc), reps=10, warmup=2),
+        "plain_ms": time_ms(lambda: ref.count_mm_ref(*plain_args), reps=2),
+        "plain_rows": R if R <= 1024 else 64,
+        "bound_ms": bnd.pop("bound_ms"), "bound_by": bnd.pop("bound_by"),
+        "library_ms": time_ms(lambda: torch.matmul(L64, R64), reps=5),
+        "ms_device": device_ms(lambda: count_mm_launch(lhs, C, slab, idx, acc, out),
+                               reps=20),
+        "shape": label, "production": p, "R": R, "K": R, "C": C.shape[-1], **bnd,
+    }
+    del lhs, acc, out, L64, R64
+    torch.cuda.empty_cache()
+    emit("count_mm_timing", **row)
+    return row
+
+
+def count_paths(eng, g, counts: dict, pairs, max_len: int) -> dict:
+    """``engine.extract_paths`` on ``pairs`` with k = 10: each path a
+    distinct walk whose word the grammar derives (CYK), at most ``max_len``
+    edges, as many as min(k, count)."""
+    from repro_torch.engine import Query
+
+    t0 = time.perf_counter()
+    eng.query(Query(g, "S", sources=tuple(sorted({i for i, _ in pairs}))))
+    edges = set(eng.graph.edges)
+    found = {}
+    for i, j in pairs:
+        paths = eng.extract_paths(g, "S", i, j, k=10, max_len=max_len)
+        check(len(paths) == min(10, counts[(i, j)]),
+              f"extract_paths ({i}, {j}): {len(paths)} paths, count {counts[(i, j)]}")
+        check(len({tuple(p) for p in paths}) == len(paths), "repeated paths")
+        for path in paths:
+            check(path[0][0] == i and path[-1][2] == j and len(path) <= max_len,
+                  f"extract_paths ({i}, {j}): a path ends wrong or is too long")
+            check(all(e in edges for e in path)
+                  and all(a[2] == b[0] for a, b in zip(path, path[1:])),
+                  f"extract_paths ({i}, {j}): not a walk")
+            check(cyk_derives(g, "S", [x for _, x, _ in path]),
+                  f"extract_paths ({i}, {j}): word not derived from S")
+        found[f"{i},{j}"] = [len(paths), counts[(i, j)]]
+    return {"pairs": found, "k": 10, "max_len": max_len,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_count(dev) -> tuple[int, list[dict]]:
+    """Count CFPQ at full width (BASE_GRAPH x PIZZA_COPIES, Query 1): all
+    pairs through the engine (the count state is (7, n, n) int32), a
+    16-source batch in copy 0, the all-pairs query pinned to bitpacked
+    (which must hit the collapsed dense plan); counts against a scipy
+    Jacobi on one copy, shifted, and the support against Hellings.  Then
+    an insert-only edit of copy 0 (recounted, against a fresh engine), an
+    edit with a delete (dropped), the saturation golden cases, bounded
+    all-path enumeration on 8 pairs of copy 0, and one count product timed
+    at each shape (:func:`count_mm_timing`).  Every closure must launch
+    ``count_mm``.  Returns (its launches, the timing rows)."""
+    from repro_torch.core.grammar import Grammar, query1_grammar
+    from repro_torch.core.graph import Graph, paper_table_graph
+    from repro_torch.engine import CompiledClosureCache, EngineConfig, Query, QueryEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    g = query1_grammar().to_cnf()
+    base = paper_table_graph(BASE_GRAPH)
+    off = base.n_nodes
+    graph = base.repeat(PIZZA_COPIES)
+    t0 = time.perf_counter()
+    one, iters = count_copy_oracle(base, g)
+    oracle = {(i + t * off, j + t * off): c
+              for t in range(PIZZA_COPIES) for (i, j), c in one.items()}
+    check(set(oracle) == shifted_oracle(), "the count oracle's support != Hellings")
+    emit("count_oracle", iterations=iters, pairs_per_copy=len(one),
+         paths_per_copy=sum(one.values()), max_count=max(one.values()),
+         seconds=time.perf_counter() - t0)
+    plans = CompiledClosureCache()
+
+    def engine_of(name, gr=None):  # a pristine graph unless one is given
+        gr = gr if gr is not None else base.repeat(PIZZA_COPIES)
+        return QueryEngine(gr, plans=plans, config=EngineConfig(engine=name, device=str(dev)),
+                           metrics=MetricsRegistry(), tracer=Tracer())
+
+    calls, launches, rows = {}, 0, []
+
+    def serve(label, eng, queries, want):
+        nonlocal launches
+        outs, fields = traced_call(eng, lambda: eng.query_batch(queries))
+        for q, r in zip(queries, outs):
+            part = want if q.sources is None else {
+                k: v for k, v in want.items() if k[0] in q.sources}
+            check(r.counts == part, f"count {label}: counts != the oracle")
+        if outs[0].stats.cache != "hit":
+            check(fields["launches"]["count_mm"] > 0, f"count {label}: no count_mm launch")
+        launches += fields["launches"]["count_mm"]
+        (st,) = [s for s in eng._states.values() if s.cnt_C is not None]
+        calls[label] = {"route": (outs[0].stats.planner or {}).get("label"),
+                        "cache": outs[0].stats.cache, "active_rows": int(st.cnt_mask.sum()),
+                        "state_bytes": st.cnt_C.numel() * 4, **fields}
+        return st
+
+    # 1. all pairs (dense), then the product timed on its state, then edits
+    eng = engine_of("dense", graph)
+    st = serve("allpairs_dense", eng, [Query(g, "S", semantics="count")], oracle)
+    check(tuple(st.cnt_C.shape) == (g.n_nonterms, eng.n, eng.n), "count state shape")
+    check(state_equals_mirror(st.cnt_C, st.cnt_C_host), "count host mirror != device")
+    rows.append(count_mm_timing("allpairs", st))
+    labels = sorted(g.term_prods)
+    rng = np.random.default_rng(13)
+    inserts = [(int(rng.integers(off)), labels[int(rng.integers(len(labels)))],
+                int(rng.integers(off))) for _ in range(3)]
+    keep = st.cnt_C[:, off:, :].clone()
+    edits = {}
+    dst, ms, dl = run_phase(lambda: eng.apply_delta(insert=inserts))
+    check(dst.count_repairs == 1 and dst.count_drops == 0, f"count insert edit: {dst}")
+    check(dl["count_mm"] > 0, "the count recount never launched count_mm")
+    launches += dl["count_mm"]
+    edits["insert"] = {"apply_delta_ms": ms, "launches": dl, **dst.as_dict()}
+    (st,) = eng._states.values()
+    check(torch.equal(st.cnt_C[:, off:, :], keep), "count rows outside copy 0 changed")
+    del keep
+    check(state_equals_mirror(st.cnt_C, st.cnt_C_host),
+          "count host mirror != device after the recount")
+    fresh = engine_of("dense", Graph(graph.n_nodes, list(graph.edges)))
+    copy0 = tuple(range(off))
+    want = fresh.query(Query(g, "S", sources=copy0, semantics="count")).counts
+    del fresh
+    torch.cuda.empty_cache()
+    got = eng.query(Query(g, "S", semantics="count"))
+    check(got.stats.cache == "hit", "count after the insert edit: not a hit")
+    check({k: v for k, v in got.counts.items() if k[0] < off} == want,
+          "the recount != a fresh engine's counts on copy 0")
+    check({k: v for k, v in got.counts.items() if k[0] >= off}
+          == {k: v for k, v in oracle.items() if k[0] >= off},
+          "the recount changed counts outside copy 0")
+    dst, ms, dl = run_phase(lambda: eng.apply_delta(delete=[e for e in graph.edges
+                                                             if e[0] < off][:2]))
+    check(dst.count_drops == 1 and dst.count_repairs == 0, f"count delete edit: {dst}")
+    edits["delete"] = {"apply_delta_ms": ms, "launches": dl, **dst.as_dict()}
+    check(not any(s.cnt_C is not None for s in eng._states.values()),
+          "the delete left a count state")
+    del eng, st
+    torch.cuda.empty_cache()
+
+    # 2. the same query pinned to bitpacked: the collapsed dense plan, a hit
+    hits = plans.stats.compile_hits
+    eng = engine_of("bitpacked")
+    serve("allpairs_bitpacked", eng, [Query(g, "S", semantics="count")], oracle)
+    check(plans.stats.compile_hits > hits, "pinned bitpacked built a count plan of its own")
+    check({k.engine for k in plans._exe if k.semantics == "count"} == {"dense"},
+          "a count plan keyed under another backend than dense")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 3. a 16-source batch in copy 0 (auto), its product timed, all paths
+    eng = engine_of("auto")
+    srcs = np.random.default_rng(3).choice(off, size=COUNT_SOURCES, replace=False)
+    st = serve("batch_auto", eng,
+               [Query(g, "S", sources=(int(s),), semantics="count") for s in srcs], oracle)
+    check(calls["batch_auto"]["route"] == "dense:masked+count",
+          f"auto routed a count batch to {calls['batch_auto']['route']}")
+    rows.append(count_mm_timing(f"batch{COUNT_SOURCES}", st))
+    top = sorted(one, key=lambda k: -one[k])[:4]
+    rest = [k for k in sorted(one) if k not in top]
+    picks = top + [rest[int(i)] for i in np.random.default_rng(4).choice(
+        len(rest), 4, replace=False)]
+    paths = count_paths(eng, g, one, picks, max_len=2 * iters + 2)
+    del eng, st
+    torch.cuda.empty_cache()
+
+    # 4. the saturation golden: a cycle admits unboundedly many paths
+    lin = Grammar.from_text("S -> a S | a").to_cnf()
+    golden = {}
+    for name, edges, want in (
+            ("loop", [(0, "a", 0)], {(0, 0): SAT}),
+            ("cycle", [(0, "a", 1), (1, "a", 0)],
+             {(i, j): SAT for i in (0, 1) for j in (0, 1)}),
+            ("sticky", [(0, "a", 0), (0, "a", 1), (1, "a", 2)],
+             {(0, 0): SAT, (0, 1): SAT, (0, 2): SAT, (1, 2): 1})):
+        gr = Graph(1 + max(max(i, j) for i, _, j in edges), edges)
+        serve(f"saturation_{name}", engine_of("dense", gr),
+              [Query(lin, "S", semantics="count")], want)
+        golden[name] = {f"{i},{j}": v for (i, j), v in want.items()}
+    for row in rows:
+        row["launches"] = launches
+    emit("count", n=graph.n_nodes, calls=calls, edits=edits, all_paths=paths,
+         saturation=golden, count_mm_launches=launches)
+    return launches, rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2183,6 +2752,7 @@ def main() -> None:
     phase_bitmm_or_checks(dev)
     tile_err = phase_tile_checks(dev)
     minplus_err = phase_minplus_checks(dev)
+    phase_count_checks(dev)
     T, tables, launches = phase_main_path(dev)
     repair = phase_delta(dev)
     tile_launches = phase_blocksparse_engine(dev)
@@ -2199,8 +2769,12 @@ def main() -> None:
         minplus_row = minplus_row or timing
     minplus_row["launches"] = minplus_launches
     phase_serve(dev)
+    phase_conjunctive(dev)
+    _, count_rows = phase_count(dev)
     kernels = phase_kernel_timing(T, tables, launches, repair, base)
-    print(json.dumps({"kernels": kernels + [tile_row, minplus_row]}), flush=True)
+    # the count row at the 16-source batch's shape: every number measured there
+    print(json.dumps({"kernels": kernels + [tile_row, minplus_row, count_rows[-1]]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
 
 

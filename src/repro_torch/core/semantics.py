@@ -31,7 +31,17 @@ reference contracts a fixed R-slot block whose padding lanes hold ``inf``;
 torch is eager, so these contract only the valid prefix of the block (the
 padding lanes' candidates are ``inf`` and never reach the ``newly`` mask),
 and the work follows the active rows, not the capacity bucket.
-Conjunctive and count semantics are not ported yet.
+
+Conjunctive semantics (paper Section 7): the masked closures of
+``repro.core.semantics`` with an AND per production and an OR per LHS
+(:func:`_conj_combine`), on the dense matmul path and on packed words
+through the ``bitmm`` kernel.  Counting semantics: path counts in the
+saturating uint32 semiring (``SAT_COUNT`` = 2^32 - 1), held in int32
+storage with the same bits, so SAT reads as -1 and every comparison that
+relies on unsigned order compares unsigned (:func:`_umax`) or tests
+``!= 0``; the Jacobi products run through ``kernels.ops.count_mm`` (the
+hand-written kernel on the card).  Bounded all-path enumeration
+(:class:`DerivationIndex`) is host numpy, a copy of the reference's.
 """
 from __future__ import annotations
 
@@ -42,15 +52,25 @@ from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import ref as _kref
 
 from . import closure as _closure
-from .closure import _active_rows, _all_rows, _iter_limit, _masked_init
+from .closure import (
+    _active_rows,
+    _all_rows,
+    _bool_matmul,
+    _iter_limit,
+    _masked_init,
+    _masked_limit,
+    _scatter_or,
+)
 from .grammar import CNFGrammar
 from .graph import Graph
 from .matrices import (
     ProductionTables,
     init_matrix,
+    pack_bits,
     padded_size,
     relations_from_matrix,
     resolve_device,
+    unpack_bits,
 )
 
 INF = float("inf")
@@ -296,6 +316,400 @@ def masked_single_path_repair_closure(
 
 
 # ---------------------------------------------------------------------- #
+# Source-restricted (masked) conjunctive closures — the engine workload for
+# ``semantics="conjunctive"``.
+#
+# Per iteration:  new[A] = OR_prods-of-A ( AND_conjuncts ( T[b] x T[c] ) )
+# over the active rows — the conjunctive generalization of
+# closure.masked_closure with the same state/mask/overflow contract.  The
+# frontier (delta) trick is unsound under AND (a conjunct's delta product
+# misses pairs whose other conjuncts completed earlier), so there is no
+# frontier variant; the engine aliases frontier to dense
+# (plan.conj_engine_name).  Conjuncts that repeat a (B, C) pair across
+# productions share one product.
+# ---------------------------------------------------------------------- #
+
+
+def _conj_combine(prod, tables):
+    """Fold per-conjunct products into per-nonterminal planes: AND over
+    each production's conjuncts, then OR over the productions of each LHS.
+
+    ``prod[k]`` is the product of flattened conjunct ``k`` (a stacked
+    tensor or a sequence of planes).  Works on bool planes and on packed
+    int32 words alike: ``&`` and ``|`` are logical on the former and
+    bitwise on the latter.  A nonterminal that heads no production gets a
+    zero plane."""
+    conj_groups = tables.conj_groups()
+    out = prod[0].new_zeros((tables.n_nonterms, *prod[0].shape))
+    for a, ps in tables.lhs_groups().items():
+        for p in ps:
+            ks = conj_groups[p]
+            t = prod[ks[0]]
+            for k in ks[1:]:
+                t = t & prod[k]
+            out[a] |= t
+    return out
+
+
+def _distinct_conjuncts(tables, device):
+    """``(b, c, which)``: the distinct (B, C) pairs of the flattened
+    conjuncts as int64 index tensors, and per conjunct the position of its
+    pair."""
+    pairs = list(dict.fromkeys(zip(tables.conj_b, tables.conj_c)))
+    which = [pairs.index(bc) for bc in zip(tables.conj_b, tables.conj_c)]
+    b, c = (torch.tensor(x, dtype=torch.int64, device=device) for x in zip(*pairs))
+    return b, c, which
+
+
+def masked_conjunctive_closure(
+    T: torch.Tensor,
+    tables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Source-restricted conjunctive closure on the dense matmul path.
+
+    ``T`` is the (N, n, n) bool state (``conjunctive.init_matrix`` or a
+    cached state for a warm restart), ``tables`` a
+    :class:`~repro_torch.core.conjunctive.ConjunctiveTables`, ``src_mask``
+    the (n,) bool row seed.  Returns ``(T, M, overflowed)``; rows of ``T``
+    under ``M`` equal the all-pairs ``conjunctive_closure`` rows iff
+    ``overflowed`` is False.  One product per distinct (B, C) pair."""
+    if tables.n_conjuncts == 0:
+        return _all_rows(T)
+    R, limit = min(row_capacity, T.shape[-1]), _masked_limit(T, max_iters)
+    ub, uc, which = _distinct_conjuncts(tables, T.device)
+    T = T.clone()
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        vidx = idx[:cnt]
+        rows = T[:, vidx, :]  # (N, cnt, n) active rows
+        lhs = rows[:, :, vidx]  # only rows in M contribute
+        prods = [_bool_matmul(lhs[b], rows[c]) for b, c in zip(ub.tolist(), uc.tolist())]
+        new_r = _conj_combine([prods[u] for u in which], tables)
+        del prods, lhs
+        changed = new_r & ~rows
+        T[:, vidx, :] = rows | new_r
+        M_next = M | rows.any(dim=1).any(dim=0)  # columns reached -> rows
+        overflow = int(M_next.sum()) > R
+        grew = bool(changed.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed.sum()), overflow)
+        M = M_next
+        it += 1
+    return T, M, overflow
+
+
+def masked_bitpacked_conjunctive_closure(
+    T: torch.Tensor,
+    tables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Source-restricted conjunctive closure on packed words: the distinct
+    conjunct pairs contract the gathered active rows of their B planes
+    against the full packed state of their C planes in ONE ``bitmm`` launch,
+    then the AND/OR fold runs bitwise on the packed products.  Contracting
+    against base-only rows stays sound under AND (each product over a
+    subset state is a subset of the true one), and at the joint fixpoint
+    the masked rows match the dense variant bit for bit."""
+    if tables.n_conjuncts == 0:
+        return _all_rows(T)
+    R, limit = min(row_capacity, T.shape[-1]), _masked_limit(T, max_iters)
+    ub, uc, which = _distinct_conjuncts(tables, T.device)
+    which = torch.tensor(which, dtype=torch.int64, device=T.device)
+    n = T.shape[-1]
+    Tp = pack_bits(T)  # (N, n, w)
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        vidx = idx[:cnt]
+        rows = Tp[:, vidx, :]  # (N, cnt, w)
+        if cnt:  # (U, cnt, w) per distinct conjunct: one launch
+            prod = _kops.bitmm(rows[ub], Tp[uc])
+        else:
+            prod = rows.new_zeros((len(ub), 0, rows.shape[-1]))
+        new_r = _conj_combine(prod[which], tables)
+        del prod
+        upd = rows | new_r
+        changed_w = upd != rows  # changed words (packed growth unit)
+        Tp[:, vidx, :] = upd
+        # packed columns reached from active rows: OR over the nonterminal
+        # axis, then any() over the unpacked rows
+        reach = rows[0].clone()
+        for a in range(1, rows.shape[0]):
+            reach |= rows[a]
+        M_next = M | unpack_bits(reach, n).any(dim=0)
+        overflow = int(M_next.sum()) > R
+        grew = bool(changed_w.any()) or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), int(changed_w.sum()), overflow)
+        M = M_next
+        it += 1
+    return unpack_bits(Tp, n), M, overflow
+
+
+# ---------------------------------------------------------------------- #
+# Counting semantics: path-count matrices in a saturating semiring.
+#
+# C[A, i, j] counts the derivation trees of (A, i ->* j) — on an
+# unambiguous grammar the number of distinct paths i ->* j whose label
+# word derives from A.  Counts are uint32 with the all-ones word as a
+# sticky saturation sentinel, held in int32 storage (the sentinel reads
+# -1).  The fixpoint is the Jacobi iteration of C[A] = C0[A] + Σ_{A→BC}
+# C[B]·C[C] from below, in three phases (see repro.core.semantics):
+#   A. the Boolean fixpoint on the support;
+#   B. the divergence greatest fixpoint: entries with unboundedly many
+#      derivations (a derivation through a dependency cycle), stamped SAT;
+#   C. the saturating Jacobi, each product one ``ops.count_mm`` launch per
+#      production whose acc chains the base row and the earlier
+#      productions of the same LHS (a saturating sum is min(SAT, Σ) in any
+#      order, so the result equals the reference's Σ-then-add).
+# ---------------------------------------------------------------------- #
+
+#: saturation sentinel: a count of 0xFFFFFFFF means ">= 2^32 - 1 paths"
+SAT_COUNT = np.uint32(_kref.SAT_COUNT)
+
+_SAT = -1  # SAT_COUNT in int32 storage
+_SIGN = -(2**31)  # xor with it maps unsigned order onto signed order
+
+
+def _sat_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Saturating uint32 add on int32 storage: clamps to the sentinel."""
+    s = _kref.as_unsigned(a) + _kref.as_unsigned(b)
+    return _kref.as_storage(s.clamp_max_(_kref.SAT_COUNT))
+
+
+def _sat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Saturating uint32 multiply on int32 storage.  a*b overflows iff
+    b > 0 and a > SAT // b (the reference's test); the product of two
+    values near 2^32 is never formed, so nothing overflows int64."""
+    return _kref.as_storage(
+        _kref.sat_mul_unsigned(_kref.as_unsigned(a), _kref.as_unsigned(b))
+    )
+
+
+def _umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise unsigned max of int32-stored counts (SAT, stored -1, is
+    the largest): the reference's uint32 ``maximum``."""
+    return torch.where((a ^ _SIGN) >= (b ^ _SIGN), a, b)
+
+
+def _count_mm(
+    lhs: torch.Tensor, rhs: torch.Tensor, chunk: int | None = None
+) -> torch.Tensor:
+    """Batched saturating count matmul on int32-stored counts:
+    out[p,i,j] = sat-Σ_k sat(lhs[p,i,k] * rhs[p,k,j]).
+
+    :func:`repro_torch.kernels.ops.count_mm` without indices: the CUDA
+    kernel on the card, the plain version on the CPU, where a ``chunk``
+    sets the contraction chunk (the result does not depend on it)."""
+    if chunk is None:
+        return _kops.count_mm(lhs, rhs)
+    if lhs.device.type != "cpu" or rhs.device.type != "cpu":
+        raise ValueError("_count_mm: a chunk is the CPU's plain version's; "
+                         "the card runs the kernel")
+    return _kref.count_mm_ref(lhs, rhs, chunk=chunk)
+
+
+def _scatter_sat_add(prod: torch.Tensor, tables: ProductionTables):
+    """Per-LHS saturating sum of production products, (P, …) -> (N, …)."""
+    out = prod.new_zeros((tables.n_nonterms, *prod.shape[1:]))
+    for p, a in enumerate(tables.a_idx):
+        out[a] = _sat_add(out[a], prod[p])
+    return out
+
+
+def count_entries(graph: Graph, g: CNFGrammar, rows=None):
+    """``(a, i, j)`` of every base path (one per edge and derived label;
+    ``i`` the position in ``rows`` when given), as int64 numpy arrays."""
+    pos = None if rows is None else {int(r): k for k, r in enumerate(rows)}
+    out = []
+    for i, x, j in graph.edges:
+        k = i if pos is None else pos.get(i)
+        if k is not None:
+            out.extend((a, k, j) for a in g.term_prods.get(x, ()))
+    arr = np.array(out, dtype=np.int64).reshape(-1, 3)
+    return arr[:, 0], arr[:, 1], arr[:, 2]
+
+
+def _count_fill(shape, entries, device) -> torch.Tensor:
+    C = torch.zeros(shape, dtype=torch.int32, device=device)
+    idx = tuple(torch.from_numpy(x).to(device) for x in entries)
+    C.index_put_(idx, torch.ones(len(entries[0]), dtype=torch.int32, device=device),
+                 accumulate=True)
+    return C
+
+
+def count_base(
+    graph: Graph,
+    g: CNFGrammar,
+    pad_to: int | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Base count matrix, (N, n, n) int32: C0[A,i,j] = #{edges (i,x,j) with
+    A -> x}, made on ``device`` with one accumulating ``index_put_``.
+
+    NOT ``init_matrix(...)`` as counts — two parallel edges with different
+    labels that both derive from A are two distinct length-1 paths."""
+    dev = resolve_device(device)
+    n = pad_to if pad_to is not None else padded_size(graph.n_nodes)
+    if n < graph.n_nodes:
+        raise ValueError("pad_to smaller than the graph")
+    return _count_fill((g.n_nonterms, n, n), count_entries(graph, g), dev)
+
+
+def count_base_rows(
+    graph: Graph,
+    g: CNFGrammar,
+    rows,
+    pad_to: int | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The ``rows`` slices of :func:`count_base`, shape
+    ``(|N|, len(rows), n)`` int32 on ``device`` — for delta recounts."""
+    n = pad_to if pad_to is not None else padded_size(graph.n_nodes)
+    return _count_fill((g.n_nonterms, len(rows), n),
+                       count_entries(graph, g, rows), resolve_device(device))
+
+
+def _count_step(C, base_rows, tables, c_idx, row=None):
+    """One Jacobi step's new planes: ``sat(base_rows[a] + Σ_{p: a_idx[p]
+    = a} C[b_p][row][:, row] · C[c_idx[p]][row])`` per nonterminal ``a``
+    (``row`` None: all rows of C), each production one ``count_mm`` launch
+    whose acc is the plane so far.  The lhs is gathered per production, one
+    (R, R) plane at a time; the rhs rows of C are read in place."""
+    planes = list(base_rows.unbind(0))
+    for p, (a, b) in enumerate(zip(tables.a_idx, tables.b_idx)):
+        lhs = C[b] if row is None else C[b].index_select(0, row).index_select(1, row)
+        planes[a] = _kops.count_mm(
+            lhs[None], C, c_idx[p:p + 1], row, acc=planes[a][None].contiguous()
+        )[0]
+    return planes
+
+
+def count_closure(
+    C0: torch.Tensor, tables: ProductionTables, max_iters: int | None = None
+) -> torch.Tensor:
+    """All-pairs counting closure: the least fixpoint of
+    ``C = C0 + Σ_{A→BC} C[B]·C[C]`` in the saturating semiring.
+
+    ``C0`` is the :func:`count_base` tensor.  Runs the three phases of the
+    section comment; finite entries converge at their derivation heights,
+    entries with unboundedly many paths land on the SAT sentinel."""
+    if tables.n_prods == 0:
+        return C0
+    b_idx, c_idx = tables.index_tensors(C0.device)
+    limit = _iter_limit(C0, max_iters)
+    T = _closure.dense_closure(C0 != 0, tables, max_iters=max_iters)  # phase A
+
+    X, changed, it = T, True, 0
+    while changed and it < limit:
+        contrib = _bool_matmul(X[b_idx], T[c_idx]) | _bool_matmul(T[b_idx], X[c_idx])
+        X_next = X & _scatter_or(contrib, tables)
+        changed = bool((X_next != X).any())
+        X, it = X_next, it + 1
+    del T
+
+    C_seed = torch.where(X, _SAT, C0)  # phase C: divergent entries pinned
+    del X
+    C, changed, it = C_seed, True, 0
+    while changed and it < limit:
+        planes = _count_step(C, C_seed, tables, c_idx)
+        # monotone guard for mixed/warm inputs (a cold run never dips)
+        C_next = _umax(torch.stack(planes), C)
+        changed = bool((C_next != C).any())
+        C, it = C_next, it + 1
+    return C
+
+
+def masked_count_closure(
+    C: torch.Tensor,
+    base: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    iter_hook=None,
+):
+    """Source-restricted counting closure — the engine workload for
+    ``semantics="count"`` (dense only; every backend aliases here through
+    ``plan.count_engine_name``).
+
+    ``C`` is the (N, n, n) int32-stored count state (``base`` itself when
+    cold, or a cached state for a warm restart), ``base`` the current
+    :func:`count_base` tensor (the Jacobi recompute re-adds it).  Returns
+    ``(C, M, overflowed)`` under the standard masked contract: rows of
+    ``C`` under ``M`` equal the all-pairs :func:`count_closure` rows iff
+    ``overflowed`` is False.  Rows are written back with an unsigned max
+    (iterates increase from below, so max never loses a count), and only
+    rows under the returned ``M`` are ever written."""
+    if tables.n_prods == 0:
+        return _all_rows(C)
+    R, b_idx, c_idx, limit = _masked_init(C, tables, row_capacity, max_iters)
+
+    # Phase A: the Boolean support closure settles M (and overflow) before
+    # any counting happens, so phases B and C run on a fixed active set.
+    T_sup, M, overflow = _closure.masked_closure(
+        (C != 0) | (base != 0), tables, src_mask,
+        row_capacity=row_capacity, max_iters=max_iters,
+    )
+    idx, cnt = _active_rows(M, R)
+    vidx = idx[:cnt]
+    T_rows = T_sup[:, vidx, :]  # (N, cnt, n)
+    del T_sup
+    lhs_T = T_rows[b_idx][:, :, vidx]  # (P, cnt, cnt)
+
+    # Phase B: divergence gfp on the active rows.  A cycle found in a
+    # partial (overflowed) support is a cycle of the true support, so the
+    # sentinel is never stamped prematurely.
+    X_rows, changed, it = T_rows, True, 0
+    while changed and it < limit:
+        lhs_X = X_rows[b_idx][:, :, vidx]
+        contrib = _bool_matmul(lhs_X, T_rows[c_idx]) | _bool_matmul(
+            lhs_T, X_rows[c_idx]
+        )
+        X_next = X_rows & _scatter_or(contrib, tables)
+        changed = bool((X_next != X_rows).any())
+        X_rows, it = X_next, it + 1
+    del T_rows, lhs_T
+    C = C.clone(memory_format=torch.contiguous_format)
+    C[:, vidx, :] = torch.where(X_rows, _SAT, C[:, vidx, :])  # max with SAT
+    del X_rows
+
+    # Phase C: saturating Jacobi over the settled active set.
+    grew, it = not overflow, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        vidx = idx[:cnt]
+        # the contraction axis is compacted too: only rows in M contribute
+        planes = _count_step(C, base[:, vidx, :], tables, c_idx, vidx)
+        changed, reach = 0, torch.zeros_like(M)
+        for a, new in enumerate(planes):  # written after every product ran
+            old = C[a, vidx, :]
+            upd = _umax(old, new)
+            changed += int((upd != old).sum())
+            reach |= (old != 0).any(dim=0)
+            C[a, vidx, :] = upd
+        del planes
+        M_next = M | reach
+        overflow = int(M_next.sum()) > R
+        grew = changed > 0 or bool((M_next & ~M).any())
+        if iter_hook is not None:
+            iter_hook(it + 1, int(M_next.sum()), changed, overflow)
+        M = M_next
+        it += 1
+    return C, M, overflow
+
+
+# ---------------------------------------------------------------------- #
 # Witness-path reconstruction ("simple search" of Theorem 5), host-side —
 # a copy of the reference's.
 # ---------------------------------------------------------------------- #
@@ -383,6 +797,91 @@ def extract_path(
     return PathExtractor(graph, g).extract(L, nonterm, i, j)
 
 
+class DerivationIndex(_DerivationBase):
+    """Packed derivation index: bounded all-path enumeration over one
+    (closure, graph, grammar) triple (a copy of the reference's).
+
+    The Boolean closure is held bit-packed by rows *and* by columns, so the
+    split candidates of a production ``A -> B C`` at ``(i, j)`` — the nodes
+    t with ``T[B,i,t]`` and ``T[C,t,j]`` — come from one AND of packed
+    words.  The closure also prunes the enumeration: a (nonterm, s, d)
+    branch with no closure entry derives nothing and is cut at once.
+
+    ``T`` must be exact on every row reachable from the queried sources
+    (the all-pairs closure, or a masked state whose mask covers the
+    source)."""
+
+    def __init__(self, T: np.ndarray, graph: Graph, g: CNFGrammar) -> None:
+        super().__init__(graph, g)
+        self._T = np.asarray(T).astype(bool)
+        self.n = self._T.shape[-1]
+        # bit t of _rows[A, i] is T[A, i, t]; _cols is the transpose view
+        # packed the same way, so splits() ANDs two contiguous words.
+        self._rows = np.packbits(self._T, axis=-1)
+        self._cols = np.packbits(self._T.transpose(0, 2, 1), axis=-1)
+
+    def splits(self, b: int, i: int, c: int, j: int) -> np.ndarray:
+        """Nodes t with T[b, i, t] and T[c, t, j], via packed AND."""
+        words = self._rows[b, i] & self._cols[c, j]
+        return np.nonzero(np.unpackbits(words, count=self.n))[0]
+
+    def _enum(self, a: int, s: int, d: int, budget: int):
+        """Yield edge-list paths ``s ->* d`` derivable from nonterminal
+        ``a`` with 1 <= length <= budget, possibly with repeats (the public
+        API dedupes).  Both halves of every split get a strictly smaller
+        budget, so it terminates; recursion depth is O(budget)."""
+        if budget < 1 or not self._T[a, s, d]:
+            return
+        for x in self._term_by_lhs.get(a, ()):
+            if x in self._edges.get((s, d), ()):
+                yield [(s, x, d)]
+        if budget < 2:
+            return
+        for b, c in self._by_lhs.get(a, ()):
+            for t in self.splits(b, s, c, d):
+                t = int(t)
+                for left in self._enum(b, s, t, budget - 1):
+                    for right in self._enum(c, t, d, budget - len(left)):
+                        yield left + right
+
+    def extract_paths(
+        self, nonterm: str, i: int, j: int, k: int, max_len: int
+    ) -> list[list[tuple[int, str, int]]]:
+        """Up to ``k`` distinct paths ``i ->* j`` derivable from
+        ``nonterm``, each of length <= ``max_len``.  A nullable start
+        contributes the empty path at ``i == j``."""
+        a0 = self.g.index_of(nonterm)
+        out: list[list[tuple[int, str, int]]] = []
+        seen: set[tuple] = set()
+        if i == j and nonterm in self.g.nullable and k > 0:
+            out.append([])
+            seen.add(())
+        for path in self._enum(a0, i, j, max_len):
+            key = tuple(path)
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(path)
+            if len(out) >= k:
+                break
+        return out
+
+
+def extract_paths(
+    T: np.ndarray,
+    graph: Graph,
+    g: CNFGrammar,
+    nonterm: str,
+    i: int,
+    j: int,
+    k: int = 10,
+    max_len: int = 16,
+) -> list[list[tuple[int, str, int]]]:
+    """One-shot bounded all-path enumeration (rebuilds the packed index
+    per call — batch extraction should use :class:`DerivationIndex`)."""
+    return DerivationIndex(T, graph, g).extract_paths(nonterm, i, j, k, max_len)
+
+
 # ---------------------------------------------------------------------- #
 # Entry points.
 # ---------------------------------------------------------------------- #
@@ -448,4 +947,29 @@ def evaluate_single_path(
     if start in g.nullable:
         for m in range(n):
             out.setdefault((m, m), [])  # empty path m pi m
+    return out
+
+
+def evaluate_count(
+    graph: Graph,
+    g: CNFGrammar,
+    start: str,
+    device: str | torch.device = "cuda",
+) -> dict[tuple[int, int], int]:
+    """Counting CFPQ: (i, j) -> number of derivations of ``start`` paths
+    i ->* j (== distinct paths on an unambiguous grammar), saturating at
+    :data:`SAT_COUNT`.  A nullable start contributes the empty path: one
+    extra path per (m, m), saturating-added like any other."""
+    tables = ProductionTables.from_grammar(g)
+    C = count_closure(count_base(graph, g, device=device), tables)
+    a0 = g.index_of(start)
+    n = graph.n_nodes
+    sub = C[a0, :n, :n].cpu().numpy().view(np.uint32)
+    out: dict[tuple[int, int], int] = {}
+    for i, j in zip(*np.nonzero(sub)):
+        out[(int(i), int(j))] = int(sub[i, j])
+    if start in g.nullable:
+        for m in range(n):
+            c = out.get((m, m), 0)
+            out[(m, m)] = c + 1 if c < int(SAT_COUNT) else int(SAT_COUNT)
     return out

@@ -1,6 +1,7 @@
 """Batched single-/multi-source CFPQ query engine of the port.
 
-``QueryEngine`` coalesces concurrent relational queries over shared
+``QueryEngine`` coalesces concurrent queries (relational, single-path,
+conjunctive over a :class:`ConjunctiveGrammar`, count) over shared
 grammars into one masked-closure call each and caches both closure plans
 (plan.py) and materialized closure rows (service.py).  Construction takes
 one typed :class:`EngineConfig` (``QueryEngine(graph, config=...)``); the
@@ -8,6 +9,7 @@ default ``engine="auto"`` routes every closure call through the cost-based
 :class:`Planner` (planner.py), and per-request statistics are the typed
 :class:`QueryStats` (stats.py).
 """
+from repro_torch.core.conjunctive import ConjunctiveGrammar
 from repro_torch.delta.repair import DeltaStats
 from repro_torch.delta.txn import Snapshot, StaleSnapshotError
 
@@ -24,6 +26,7 @@ from .stats import QueryStats
 
 __all__ = [
     "CompiledClosureCache",
+    "ConjunctiveGrammar",
     "DeltaStats",
     "ENGINE_CHOICES",
     "EngineConfig",

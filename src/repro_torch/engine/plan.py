@@ -19,15 +19,19 @@ Invariants
   it survives every graph edit and may be shared across engines serving
   different graphs of the same padded size.  The key keeps every field of
   the reference's ``PlanKey``; the port builds single-device keys
-  (``mesh=()``) of the relational and single-path semantics, masked or
-  repair (``repair=True``, with ``ctx_capacity`` the contraction-context
-  bucket of the dense/frontier and every single-path repair, 0 for the
-  packed and block-sparse ones).  ``tile`` is the bit-tile edge of a
+  (``mesh=()``): relational and single-path, masked or repair
+  (``repair=True``, with ``ctx_capacity`` the contraction-context bucket
+  of the dense/frontier and every single-path repair, 0 for the packed
+  and block-sparse ones), and masked conjunctive and count keys (their
+  ``tables`` a ``ConjunctiveTables`` or ``ProductionTables``; neither
+  has a repair variant).  ``tile`` is the bit-tile edge of a
   block-sparse key (whose ``row_capacity`` then counts occupied blocks),
   0 for every other backend.
-* **Key aliasing is semantic.**  :func:`sp_engine_name` collapses keys
+* **Key aliasing is semantic.**  :func:`sp_engine_name`,
+  :func:`conj_engine_name` and :func:`count_engine_name` collapse keys
   exactly where the closure function is shared (bitpacked single-path
-  aliases to dense; the one single-path repair keys as dense), so the
+  aliases to dense; the one single-path repair keys as dense; conjunctive
+  keys collapse onto dense and bitpacked, count keys onto dense), so the
   hit counters reflect real reuse.
 """
 from __future__ import annotations
@@ -67,6 +71,39 @@ SP_ENGINES = {
     "dense": _semantics.masked_single_path_closure,
     "frontier": _semantics.masked_frontier_single_path_closure,
 }
+
+
+#: masked conjunctive closure per backend (``semantics="conjunctive"``).
+#: Only two real variants exist, the dense matmul path and the packed-word
+#: path: the frontier trick is unsound under AND, and the block-sparse
+#: treatment has no conjunctive variant, so :func:`conj_engine_name`
+#: aliases every backend onto these two.
+CONJ_ENGINES = {
+    "dense": _semantics.masked_conjunctive_closure,
+    "bitpacked": _semantics.masked_bitpacked_conjunctive_closure,
+}
+
+#: masked counting closure (``semantics="count"``).  One real variant:
+#: saturating count planes have no packed layout, no frontier trick (the
+#: Jacobi recompute re-reads full rows) and no block-tiled treatment, so
+#: :func:`count_engine_name` aliases every backend onto it.
+COUNT_ENGINES = {
+    "dense": _semantics.masked_count_closure,
+}
+
+
+def count_engine_name(engine: str) -> str:
+    """Backend name to key counting plans under: always ``dense`` — there
+    is exactly one masked counting closure (see :data:`COUNT_ENGINES`)."""
+    return "dense"
+
+
+def conj_engine_name(engine: str) -> str:
+    """Backend name to key conjunctive plans under: packed backends
+    (bitpacked, opt, blocksparse) alias to the bitpacked conjunctive
+    closure, everything else (dense, frontier) to the dense one."""
+    return "bitpacked" if engine in ("bitpacked", "opt", "blocksparse") \
+        else "dense"
 
 
 def sp_engine_name(engine: str, repair: bool = False) -> str:
@@ -115,7 +152,7 @@ class PlanKey:
     closure's ``iter_hook``.  It IS part of the identity, so the untraced
     path never calls a hook."""
 
-    tables: ProductionTables
+    tables: ProductionTables  # a ConjunctiveTables for a conjunctive key
     engine: str
     n: int  # padded matrix size
     row_capacity: int
@@ -158,9 +195,9 @@ class CompiledClosureCache:
     """Masked-closure callables keyed on PlanKey.
 
     ``get(key)`` returns a callable ``(T, src_mask) -> (T, mask, overflow)``
-    — ``(T, src_mask, frozen_mask)`` for a repair key; ``T`` is the f32
-    length state for a single-path key — with the grammar tables and
-    capacities bound.  The name and counters
+    — ``(T, src_mask, frozen_mask)`` for a repair key, ``(C, base,
+    src_mask)`` for a count key; ``T`` is the f32 length state for a
+    single-path key — with the grammar tables and capacities bound.  The name and counters
     are the reference's; in the port a "compile" is the binding of the
     closure's statics.
     """
@@ -188,17 +225,30 @@ class CompiledClosureCache:
     @staticmethod
     def _build(key: PlanKey):
         blocksparse = key.engine == "blocksparse" and key.semantics == "relational"
-        if key.semantics not in ("relational", "single_path") or key.mesh \
-                or (key.tile and not blocksparse):
-            raise ValueError(
-                "the port serves relational and single-path single-device "
-                f"plans only: {key}"
-            )
+        masked_only = key.semantics in ("conjunctive", "count")
+        if key.semantics not in ("relational", "single_path", "conjunctive", "count") \
+                or key.mesh or (key.tile and not blocksparse) \
+                or (masked_only and key.repair):
+            raise ValueError(f"the port builds no plan for {key}")
         single_path = key.semantics == "single_path"
         kw = {
             "row_capacity": key.row_capacity,
             "iter_hook": emit_iteration if key.instrumented else None,
         }
+        if key.semantics == "conjunctive":
+            conj = CONJ_ENGINES[key.engine]
+
+            def exe_conj(T, src_mask):
+                return conj(T, key.tables, src_mask, **kw)
+
+            return exe_conj
+        if key.semantics == "count":
+            count = COUNT_ENGINES[key.engine]
+
+            def exe_count(C, base, src_mask):
+                return count(C, base, key.tables, src_mask, **kw)
+
+            return exe_count
         if blocksparse:  # host-driven: capacity counts occupied blocks
             kw["tile"] = key.tile or _blocksparse.DEFAULT_TILE
         if key.repair:

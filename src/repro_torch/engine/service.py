@@ -1,5 +1,6 @@
-"""Batched single-/multi-source CFPQ serving — the port's relational and
-single-path slice of ``repro.engine.service``.
+"""Batched single-/multi-source CFPQ serving — the port of
+``repro.engine.service``: relational, single-path, conjunctive and count
+semantics.
 
 ``QueryEngine`` is bound to one graph and serves queries over any number of
 grammars.  A batch is coalesced per (grammar, semantics): the union of all
@@ -19,6 +20,17 @@ ladder, and a host mirror of it that the witness extractor
 mask are copied into the mirror: finite lengths are frozen, and rows
 already under the mask were exact, so no other row changed.  Witnesses
 are memoized per grammar state until the next ingested delta.
+
+Conjunctive queries (``semantics="conjunctive"``, a
+:class:`~repro_torch.core.conjunctive.ConjunctiveGrammar`) share the
+relational path's Boolean state and slicing over different closures
+(plan.CONJ_ENGINES).  Count queries (``semantics="count"``) keep a third
+state per grammar: the (N, n, n) path-count matrix in the saturating
+uint32 semiring, held in int32 storage (SAT = 2^32 - 1 reads -1), its
+base tensor on the device, and a host mirror that, as for single-path,
+receives only the rows a closure may have written.  ``extract_paths``
+enumerates up to k paths of a pair over the relational state
+(:class:`~repro_torch.core.semantics.DerivationIndex`).
 
 Cache states reported per request:
   ``hit``   every requested row was already materialized;
@@ -49,6 +61,9 @@ from repro_torch.core.blocksparse import (
     occupied_block_count,
     occupied_blocks_of_edges,
 )
+from repro_torch.core.conjunctive import ConjunctiveGrammar, ConjunctiveTables
+from repro_torch.core.conjunctive import init_matrix as conj_init_matrix
+from repro_torch.core.conjunctive import init_matrix_rows as conj_init_matrix_rows
 from repro_torch.core.grammar import CNFGrammar
 from repro_torch.core.graph import Graph
 from repro_torch.core.matrices import (
@@ -58,7 +73,15 @@ from repro_torch.core.matrices import (
     padded_size,
     resolve_device,
 )
-from repro_torch.core.semantics import PathExtractor, init_lengths
+from repro_torch.core.semantics import (
+    SAT_COUNT,
+    DerivationIndex,
+    PathExtractor,
+    count_base,
+    count_base_rows,
+    count_entries,
+    init_lengths,
+)
 from repro_torch.delta.repair import (
     DeltaStats,
     placement_of,
@@ -75,22 +98,27 @@ from .plan import (
     CompiledClosureCache,
     PlanKey,
     bucket_for,
+    conj_engine_name,
+    count_engine_name,
     repair_engine_name,
     sp_engine_name,
 )
 from .planner import PlanDecision, PlanFeatures, Planner
 from .stats import QueryStats
 
-#: semantics of the reference engine that this port does not serve yet,
-#: and the ROADMAP.md item ("Modules to port") that will port each
-_NOT_PORTED = {
-    "conjunctive": "item 8, conjunctive",
-    "count": "item 9, count and all-paths",
-}
+def grammar_key(g: CNFGrammar | ConjunctiveGrammar):
+    """Value identity of a grammar (CNFGrammar itself is mutable).
 
-
-def grammar_key(g: CNFGrammar):
-    """Value identity of a grammar (CNFGrammar itself is mutable)."""
+    Conjunctive grammars key under a distinct leading tag with their full
+    conjunct structure, so a CNF grammar and a conjunctive one never
+    collide."""
+    if isinstance(g, ConjunctiveGrammar):
+        return (
+            "conjunctive",
+            g.nonterms,
+            tuple(sorted(g.term_prods)),
+            g.conj_prods,
+        )
     return (
         tuple(g.nonterms),
         tuple(sorted((x, tuple(v)) for x, v in g.term_prods.items())),
@@ -99,18 +127,35 @@ def grammar_key(g: CNFGrammar):
     )
 
 
+def _key_engine(semantics: str, engine: str, repair: bool = False) -> str:
+    """The backend name a plan of ``semantics`` keys under (plan.py's
+    aliasing: single-path, conjunctive and count plans collapse onto the
+    closures that exist, a repair onto its repair closure)."""
+    if semantics == "single_path":
+        return sp_engine_name(engine, repair=repair)
+    if semantics == "conjunctive":
+        return conj_engine_name(engine)
+    if semantics == "count":
+        return count_engine_name(engine)
+    return repair_engine_name(engine) if repair else engine
+
+
 @dataclass(frozen=True)
 class Query:
     """One CFPQ request.
 
     ``sources=None`` asks for the all-pairs relation; otherwise only pairs
     whose source is listed are computed/returned.  ``semantics`` is
-    ``"relational"`` (pair set) or ``"single_path"`` (one witness path per
-    pair, paper Section 5); the conjunctive and count semantics of the
-    reference are not ported yet.
+    ``"relational"`` (pair set), ``"single_path"`` (one witness path per
+    pair, paper Section 5), ``"conjunctive"`` (upper-approximate
+    intersection relations, paper Section 7 — requires a
+    :class:`~repro_torch.core.conjunctive.ConjunctiveGrammar`), or
+    ``"count"`` (per-pair path counts in the saturating semiring,
+    ``SAT_COUNT`` meaning "at least 2^32 - 1 paths" — requires a CNF
+    grammar; results carry ``QueryResult.counts``).
     """
 
-    grammar: CNFGrammar
+    grammar: CNFGrammar | ConjunctiveGrammar
     start: str
     sources: tuple[int, ...] | None = None
     semantics: str = "relational"
@@ -123,6 +168,9 @@ class QueryResult:
     #: one witness path per pair (``semantics="single_path"`` only)
     paths: dict[tuple[int, int], list[tuple[int, str, int]]] | None
     stats: QueryStats
+    #: per-pair path counts (``semantics="count"`` only): values are
+    #: exact below ``SAT_COUNT``; the sentinel means "at least that many"
+    counts: dict[tuple[int, int], int] | None = None
 
 
 @dataclass
@@ -137,7 +185,17 @@ class _GrammarState:
     sp_L: torch.Tensor | None = None
     sp_L_host: np.ndarray | None = None
     sp_mask: np.ndarray | None = None
+    # count state beside the other two: the (N, n, n) int32-stored uint32
+    # path counts on the device, its host mirror, its own row mask, and the
+    # base tensor the Jacobi recompute re-adds (kept on the device)
+    cnt_C: torch.Tensor | None = None
+    cnt_C_host: np.ndarray | None = None
+    cnt_mask: np.ndarray | None = None
+    cnt_base: torch.Tensor | None = None
     extractor: PathExtractor | None = None  # edge/production index cache
+    # packed all-path enumeration index over the Boolean state; dropped
+    # whenever T_host changes (closure run or delta)
+    deriv: DerivationIndex | None = None
     # witness memo keyed (start, i, j): valid until the next ingested delta
     # (warm closures only add entries, they never rewrite frozen ones)
     sp_paths: dict = field(default_factory=dict)
@@ -145,12 +203,14 @@ class _GrammarState:
     # ("local" | "none") and which backend last served it
     placement: str = "none"
     sp_placement: str = "none"
+    cnt_placement: str = "none"
     served_by: str = ""
     sp_served_by: str = ""
+    cnt_served_by: str = ""
 
 
 class QueryEngine:
-    """Batched relational CFPQ query service over one graph."""
+    """Batched CFPQ query service over one graph."""
 
     def __init__(
         self,
@@ -239,8 +299,12 @@ class QueryEngine:
                 batch = [queries[i] for i in qidx]
                 if semantics == "single_path":
                     outs = self._serve_single_path(state, batch)
-                else:
-                    outs = self._serve_relational(state, batch)
+                elif semantics == "count":
+                    outs = self._serve_count(state, batch)
+                else:  # relational and conjunctive share the bool-state path
+                    outs = self._serve_relational(
+                        state, batch, semantics=semantics
+                    )
                 for i, out in zip(qidx, outs):
                     results[i] = out
             for out in results:
@@ -297,7 +361,14 @@ class QueryEngine:
                 plan = plan_repair(g, delta, self.n)
                 for state in self._states.values():
                     state.extractor = None  # edge indices are stale
+                    state.deriv = None  # packed closure index too
                     state.sp_paths.clear()  # memoized witnesses may walk them
+
+                    if isinstance(state.tables, ConjunctiveTables):
+                        # conjunctive states have their own delta contract:
+                        # insert-only = warm re-seed, any delete = full drop
+                        self._repair_conjunctive(state, plan, delta, stats)
+                        continue
 
                     def base_rows(idx, grammar=state.grammar):
                         return init_matrix_rows(g, grammar, idx, pad_to=self.n)
@@ -347,6 +418,10 @@ class QueryEngine:
                         state.sp_mask = sp_mask
                         state.sp_placement = placement_of(L_dev)
                         stats.merge(st)
+                    if state.cnt_C is not None and state.cnt_mask is not None:
+                        # count states: insert-only = recount the affected
+                        # rows from the new base, any delete = full drop
+                        self._repair_count(state, plan, delta, stats)
                 dsp.set(**stats.as_dict())
             self.metrics.observe_delta(stats)
         self._version = g.version
@@ -355,6 +430,108 @@ class QueryEngine:
         self.clock.advance(g.version)
         self.metrics.delta_epoch.set(self.clock.epoch)
         return stats
+
+    def _repair_conjunctive(
+        self, state: _GrammarState, plan, delta, stats: DeltaStats
+    ) -> None:
+        """Apply one delta to a cached conjunctive state.
+
+        **Any deletion drops the whole state.**  Under AND a frozen row is
+        no trustworthy context: removing one conjunct's support can retract
+        entries in rows the reverse-reachability blast radius never touches
+        through the other conjuncts, so no frozen set short of everything
+        is sound.
+
+        **Insert-only deltas repair by warm re-seed.**  Inserts only grow
+        the fixpoint (AND of monotone products is monotone), so the cached
+        state is a valid warm start: OR the new base edges into the
+        inserted sources' rows, then re-enter the masked conjunctive
+        closure seeded with the affected rows and the sources."""
+        if state.T is None or state.mask is None:
+            return
+        if delta.deleted:
+            stats.rows_evicted += int(state.mask.sum())
+            stats.conj_drops += 1
+            state.T = state.T_host = state.mask = None
+            state.placement = "none"
+            state.served_by = ""
+            return
+        mask = state.mask.copy()
+        T_dev = state.T
+        if plan.ins_sources.any():
+            # base-row surgery on a copy: entries only grow on this path
+            idx = np.nonzero(plan.ins_sources)[0]
+            base = conj_init_matrix_rows(self.graph, state.grammar, idx, pad_to=self.n)
+            tidx = torch.from_numpy(idx).to(self.device)
+            T_dev = T_dev.clone()
+            T_dev[:, tidx, :] |= torch.from_numpy(base).to(self.device)
+        seed = (plan.affected & mask) | plan.ins_sources
+        if seed.any():
+            d = self._decide(state, seed, seed, "conjunctive", "warm")
+            state.served_by = d.engine
+            T_dev, M, calls, _ = self._run_fixpoint(
+                state.tables, T_dev, seed, semantics="conjunctive", decision=d,
+            )
+            mask |= M
+            stats.rows_repaired += int(M.sum())
+            stats.repair_iters += calls
+            stats.conj_repairs += 1
+        state.T, state.T_host, state.mask = T_dev, T_dev.cpu().numpy(), mask
+        state.placement = placement_of(T_dev)
+
+    def _repair_count(
+        self, state: _GrammarState, plan, delta, stats: DeltaStats
+    ) -> None:
+        """Apply one delta to a cached count state.
+
+        **Any deletion drops the whole state.**  The saturating semiring
+        has no subtractive inverse (a saturated entry forgets how much of
+        it the deleted edge carried), so nothing sound is left to freeze.
+
+        **Insert-only deltas recount the affected rows.**  A count row is a
+        sum, not a set, so folding new base entries into accumulated counts
+        would double-count.  The base tensor is rebuilt, every affected
+        cached row is reset to its new base row, and the masked count
+        closure re-enters seeded with those rows; unaffected mask rows
+        cannot reach an inserted edge, so their counts are unchanged and
+        they re-enter as exact, Jacobi-stable context.  The host mirror
+        takes the rows under the closure's mask."""
+        if delta.deleted:
+            stats.rows_evicted += int(state.cnt_mask.sum())
+            stats.count_drops += 1
+            state.cnt_C = state.cnt_C_host = state.cnt_mask = None
+            state.cnt_base = None
+            state.cnt_placement = "none"
+            state.cnt_served_by = ""
+            return
+        mask = state.cnt_mask.copy()
+        state.cnt_base = None  # free the old base before the new one is made
+        state.cnt_base = count_base(
+            self.graph, state.grammar, pad_to=self.n, device=self.device
+        )
+        C_dev = state.cnt_C
+        reset = (plan.affected & mask) | plan.ins_sources
+        if reset.any():
+            idx = np.nonzero(reset)[0]
+            rows = count_base_rows(
+                self.graph, state.grammar, idx, pad_to=self.n, device=self.device
+            )
+            C_dev = C_dev.clone()
+            C_dev[:, torch.from_numpy(idx).to(self.device), :] = rows
+            d = self._decide(state, reset, reset, "count", "warm")
+            state.cnt_served_by = d.engine
+            C_dev, M, calls, _ = self._run_fixpoint(
+                state.tables, C_dev, reset, semantics="count", decision=d,
+                cnt_base=state.cnt_base,
+            )
+            mask |= M
+            state.cnt_C_host = self._mirror_rows(state, C_dev, M, "count")
+            stats.rows_repaired += int(M.sum())
+            stats.repair_iters += calls
+            stats.count_repairs += 1
+        state.cnt_C = C_dev
+        state.cnt_mask = mask
+        state.cnt_placement = placement_of(C_dev)
 
     # ------------------------------------------------------------------ #
     def _check_graph(self) -> None:
@@ -393,29 +570,33 @@ class QueryEngine:
             self.n = padded_size(g.n_nodes)
             self.clock.advance(g.version)
 
-    def _state_for(self, gkey: tuple, g: CNFGrammar) -> _GrammarState:
+    def _state_for(self, gkey: tuple, g) -> _GrammarState:
         state = self._states.get(gkey)
         if state is None:
-            state = _GrammarState(g, ProductionTables.from_grammar(g))
+            tables = (
+                ConjunctiveTables.from_grammar(g)
+                if isinstance(g, ConjunctiveGrammar)
+                else ProductionTables.from_grammar(g)
+            )
+            state = _GrammarState(g, tables)
             self._states[gkey] = state
         return state
 
     def validate_query(self, q: Query) -> None:
-        """Raise ``ValueError`` for a malformed or not-yet-ported query.
-        ``query_batch`` validates every member; the serving loop calls
-        this per query at admission, so one bad request fails its own
-        caller instead of the whole coalesced batch."""
-        if q.semantics in _NOT_PORTED:
-            raise ValueError(
-                f"semantics {q.semantics!r} is not ported to the torch engine "
-                f"yet (ROADMAP.md, modules to port, {_NOT_PORTED[q.semantics]})"
-            )
-        if q.semantics not in ("relational", "single_path"):
+        """Raise ``ValueError`` for a malformed query.  ``query_batch``
+        validates every member; the serving loop calls this per query at
+        admission, so one bad request fails its own caller instead of the
+        whole coalesced batch."""
+        if q.semantics not in (
+            "relational", "single_path", "conjunctive", "count"
+        ):
             raise ValueError(f"unknown semantics {q.semantics!r}")
-        if not isinstance(q.grammar, CNFGrammar):
+        conj_grammar = isinstance(q.grammar, ConjunctiveGrammar)
+        if conj_grammar != (q.semantics == "conjunctive"):
             raise ValueError(
-                f"{q.semantics} queries need a CNFGrammar, got "
-                f"{type(q.grammar).__name__}"
+                f"semantics {q.semantics!r} does not match grammar type "
+                f"{type(q.grammar).__name__} (ConjunctiveGrammar queries "
+                'must use semantics="conjunctive" and vice versa)'
             )
         for m in q.sources or ():
             if not 0 <= m < self.graph.n_nodes:
@@ -444,10 +625,11 @@ class QueryEngine:
         port has no mesh, so the candidates are dense, frontier, bitpacked
         and — when the graph is large enough for block skipping — blocksparse
         (dense, bitpacked and blocksparse for a relational repair, dense and
-        frontier for single-path)."""
-        placement = (
-            state.sp_placement if semantics == "single_path" else state.placement
-        )
+        frontier for single-path, dense and bitpacked for conjunctive, dense
+        for count)."""
+        placement = {
+            "single_path": state.sp_placement, "count": state.cnt_placement,
+        }.get(semantics, state.placement)
         tables = state.tables
         f = PlanFeatures(
             n=self.n,
@@ -468,6 +650,7 @@ class QueryEngine:
                 self.n, self.graph.edges, self.config.tile
             ),
             tile=self.config.tile,
+            conjuncts=getattr(tables, "n_conjuncts", 0),
         )
         return self.planner.decide(
             f, pin=self._pin, min_capacity=self.row_capacity
@@ -481,6 +664,7 @@ class QueryEngine:
         decision: PlanDecision,
         frozen: np.ndarray | None = None,
         semantics: str = "relational",
+        cnt_base: torch.Tensor | None = None,
     ):
         """Run the masked closure to completion from ``seed`` rows, growing
         the capacity bucket on overflow (monotone warm restarts, so no work
@@ -488,7 +672,10 @@ class QueryEngine:
         variant: frozen rows are contracted against but never recomputed,
         so capacity tracks the edit's blast radius, not the cache size.
         ``semantics="single_path"`` runs the length-annotated closures on
-        the f32 state instead (same signatures, same bucket ladder).
+        the f32 state instead (same signatures, same bucket ladder);
+        ``"conjunctive"`` the conjunctive closures on the Boolean state, and
+        ``"count"`` the count closure on the count state, which also takes
+        the base tensor ``cnt_base``.
 
         ``decision`` names the backend the planner picked; every capacity
         overflow is a fallback observation point — when
@@ -500,19 +687,15 @@ class QueryEngine:
         Returns ``(T_device, M_host, n_calls, fallback_event)``."""
         mask = np.asarray(seed)
         repair = frozen is not None
-        single_path = semantics == "single_path"
-        if single_path:
-            eng_name = sp_engine_name(decision.engine, repair=repair)
-        elif repair:
-            eng_name = repair_engine_name(decision.engine)
-        else:
-            eng_name = decision.engine
+        eng_name = _key_engine(semantics, decision.engine, repair)
         cap = bucket_for(max(decision.row_capacity, int(mask.sum())), self.n)
         n_frozen = cap_c = 0
         if repair:
             frozen_dev = torch.from_numpy(np.asarray(frozen)).to(self.device)
             n_frozen = int(np.asarray(frozen).sum())
-            if single_path or eng_name not in ("bitpacked", "blocksparse"):
+            if semantics == "single_path" or eng_name not in (
+                "bitpacked", "blocksparse"
+            ):
                 # dense/frontier (and every single-path) repair compacts the
                 # contraction axis over active + frozen rows; the packed and
                 # block-sparse repairs contract full packed words instead
@@ -549,6 +732,8 @@ class QueryEngine:
                     src = torch.from_numpy(mask).to(self.device)
                     if repair:
                         T, M, overflow = exe(T, src, frozen_dev)
+                    elif semantics == "count":  # the Jacobi re-adds the base
+                        T, M, overflow = exe(T, cnt_base, src)
                     else:
                         T, M, overflow = exe(T, src)
                     calls += 1
@@ -572,7 +757,7 @@ class QueryEngine:
                         csp.add_event(
                             "planner.fallback", tracer.clock(), **fallback_event
                         )
-                        eng_name = sp_engine_name(fb) if single_path else fb
+                        eng_name = _key_engine(semantics, fb)
                         cap = self.n
                         self.planner.note_fallback()
                         continue
@@ -605,31 +790,37 @@ class QueryEngine:
         semantics: str = "relational",
     ) -> tuple[str, PlanDecision | None, dict | None]:
         """Materialize closure rows covering the batch (the Boolean state,
-        or the f32 length state and its host mirror for
-        ``semantics="single_path"``); returns ``(cache_status, decision,
+        the f32 length state and its host mirror for
+        ``semantics="single_path"``, or the count state and its host mirror
+        for ``semantics="count"``); returns ``(cache_status, decision,
         fallback_event)`` — the latter two are None on a pure cache hit
         (no closure ran, nothing was planned)."""
         single_path = semantics == "single_path"
+        count = semantics == "count"
         need = self._need_mask(batch)
         if need is None:
             need = np.ones(self.n, dtype=bool)
             need[self.graph.n_nodes :] = False  # padding rows are empty
         if single_path:
             mask, cur = state.sp_mask, state.sp_L
+        elif count:
+            mask, cur = state.cnt_mask, state.cnt_C
         else:
             mask, cur = state.mask, state.T
         if mask is not None and (need <= mask).all():
             return "hit", None, None
         status = "miss" if cur is None else "warm"
         if cur is None:
+            make = init_matrix
             if single_path:
-                cur = init_lengths(
-                    self.graph, state.grammar, pad_to=self.n, device=self.device
-                )
-            else:
-                cur = init_matrix(
-                    self.graph, state.grammar, pad_to=self.n, device=self.device
-                )
+                make = init_lengths
+            elif semantics == "conjunctive":
+                make = conj_init_matrix
+            elif count:
+                make = count_base
+            cur = make(self.graph, state.grammar, pad_to=self.n, device=self.device)
+            if count:
+                state.cnt_base = cur  # the closure copies it; never written
             mask = np.zeros(self.n, dtype=bool)
         with self.tracer.span(
             "planner.decide", cat="engine", semantics=semantics, cache=status
@@ -640,7 +831,7 @@ class QueryEngine:
             psp.set(route=decision.label, pinned=decision.pinned)
         out, M, _, fb = self._run_fixpoint(
             state.tables, cur, mask | need, decision=decision,
-            semantics=semantics,
+            semantics=semantics, cnt_base=state.cnt_base if count else None,
         )
         served = fb["to"] if fb else decision.engine
         if single_path:
@@ -648,10 +839,16 @@ class QueryEngine:
             state.sp_L, state.sp_mask = out, M
             state.sp_placement = "local"
             state.sp_served_by = served
+        elif count:
+            state.cnt_C_host = self._mirror_rows(state, out, M & ~mask, "count")
+            state.cnt_C, state.cnt_mask = out, M
+            state.cnt_placement = "local"
+            state.cnt_served_by = served
         else:
             state.T, state.T_host, state.mask = out, out.cpu().numpy(), M
             state.placement = "local"
             state.served_by = served
+            state.deriv = None  # the packed index is a view of the old T_host
             if served == "blocksparse":  # counted on the device state
                 self.metrics.observe_blocksparse(
                     occupied_block_count(out, self.config.tile)
@@ -659,20 +856,30 @@ class QueryEngine:
         return status, decision, fb
 
     def _mirror_rows(
-        self, state: _GrammarState, L: torch.Tensor, rows: np.ndarray
+        self,
+        state: _GrammarState,
+        L: torch.Tensor,
+        rows: np.ndarray,
+        semantics: str = "single_path",
     ) -> np.ndarray:
-        """The host mirror of the length state ``L`` after a closure that
-        may have written only ``rows`` (the rows that joined the mask).  A
-        first closure starts the mirror from the base lengths, made on the
-        host as the device state was."""
-        host = state.sp_L_host
+        """The host mirror of the length state ``L`` (or, with
+        ``semantics="count"``, of the count state) after a closure that may
+        have written only ``rows``.  A first closure starts the mirror from
+        the base lengths or counts, made on the host as the device state
+        was."""
+        count = semantics == "count"
+        host = state.cnt_C_host if count else state.sp_L_host
         if host is None:
             with self.tracer.span(
                 "state.mirror_init", cat="engine", bytes=4 * L.numel()
             ):
-                host = init_lengths(
-                    self.graph, state.grammar, pad_to=self.n, device="cpu"
-                ).numpy()
+                if count:  # zeros stay lazy: only the base entries are touched
+                    host = np.zeros(tuple(L.shape), dtype=np.int32)
+                    np.add.at(host, count_entries(self.graph, state.grammar), 1)
+                else:
+                    host = init_lengths(
+                        self.graph, state.grammar, pad_to=self.n, device="cpu"
+                    ).numpy()
         idx = np.nonzero(rows)[0]
         with self.tracer.span(
             "closure.host_copy", cat="engine", rows=len(idx),
@@ -683,11 +890,16 @@ class QueryEngine:
         return host
 
     def _serve_relational(
-        self, state: _GrammarState, batch: list[Query]
+        self,
+        state: _GrammarState,
+        batch: list[Query],
+        semantics: str = "relational",
     ) -> list[QueryResult]:
-        """Serve a batch of one grammar: materialize, then slice rows."""
+        """Serve a bool-state batch: materialize, then slice rows — the
+        relational path, and (``semantics="conjunctive"``) the conjunctive
+        one, over the conjunctive closures (plan.CONJ_ENGINES)."""
         t0 = time.perf_counter()
-        status, decision, fb = self._ensure_rows(state, batch)
+        status, decision, fb = self._ensure_rows(state, batch, semantics=semantics)
         latency = time.perf_counter() - t0
         nn = self.graph.n_nodes
         T = state.T_host
@@ -697,7 +909,7 @@ class QueryEngine:
             # the backend that materialized the served rows — on a cache
             # hit that is whoever ran last, not whoever would run next
             engine=state.served_by or self.engine,
-            semantics="relational",
+            semantics=semantics,
             batched_with=len(batch),
             active_rows=int(state.mask.sum()),
             epoch=self.clock.epoch,
@@ -784,3 +996,79 @@ class QueryEngine:
             QueryResult(q, pairs, paths, stats.copy())
             for q, pairs, paths in sliced
         ]
+
+    def _serve_count(
+        self, state: _GrammarState, batch: list[Query]
+    ) -> list[QueryResult]:
+        """Serve a count batch: the same caching and slicing over the count
+        state's host mirror (plan.COUNT_ENGINES underneath).  Counts are
+        exact below ``SAT_COUNT``; the sentinel means "at least that many
+        paths"."""
+        t0 = time.perf_counter()
+        status, decision, fb = self._ensure_rows(state, batch, semantics="count")
+        latency = time.perf_counter() - t0
+        nn = self.graph.n_nodes
+        C = state.cnt_C_host.view(np.uint32)
+        active = int(state.cnt_mask.sum())
+        self.metrics.observe_count_state(active)
+        stats = QueryStats(
+            latency_s=latency,
+            cache=status,
+            engine=state.cnt_served_by or self.engine,
+            semantics="count",
+            batched_with=len(batch),
+            active_rows=active,
+            epoch=self.clock.epoch,
+            planner=decision.to_dict() if decision is not None else None,
+            fallback=fb,
+        )
+        stats.update(self.delta_stats.as_dict())
+        stats.update(self.plans.stats.as_dict())
+        sat = int(SAT_COUNT)
+        outs = []
+        for q in batch:
+            a0 = state.grammar.index_of(q.start)
+            rows = range(nn) if q.sources is None else q.sources
+            pairs: set[tuple[int, int]] = set()
+            counts: dict[tuple[int, int], int] = {}
+            for i in rows:
+                row = C[a0, i, :nn]
+                for j in np.nonzero(row)[0]:
+                    pairs.add((i, int(j)))
+                    counts[(i, int(j))] = int(row[j])
+            if q.start in state.grammar.nullable:
+                for m in rows:  # the empty path m pi m is one more path
+                    c = counts.get((m, m), 0)
+                    counts[(m, m)] = c + 1 if c < sat else sat
+                    pairs.add((m, m))
+            outs.append(QueryResult(q, pairs, None, stats.copy(), counts=counts))
+        return outs
+
+    def extract_paths(
+        self,
+        grammar: CNFGrammar,
+        start: str,
+        m: int,
+        n: int,
+        k: int = 10,
+        max_len: int = 16,
+    ) -> list[list[tuple[int, str, int]]]:
+        """Up to ``k`` distinct paths ``m ->* n`` derivable from ``start``,
+        each of length <= ``max_len`` (bounded all-path enumeration,
+        :class:`~repro_torch.core.semantics.DerivationIndex`).
+
+        Materializes Boolean closure rows for source ``m`` through the
+        relational cache, then enumerates over the packed derivation index,
+        which is cached on the grammar state and rebuilt only when the
+        closure state changes (new rows, or an ingested delta)."""
+        with self._lock:
+            self._check_graph()
+            q = Query(grammar, start, sources=(m,))
+            self.validate_query(q)
+            if not 0 <= n < self.graph.n_nodes:
+                raise ValueError(f"target {n} outside graph")
+            state = self._state_for(grammar_key(grammar), grammar)
+            self._ensure_rows(state, [q])
+            if state.deriv is None:
+                state.deriv = DerivationIndex(state.T_host, self.graph, grammar)
+            return state.deriv.extract_paths(start, m, n, k, max_len)

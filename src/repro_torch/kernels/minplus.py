@@ -24,9 +24,12 @@ ENTRIES = {"repro_minplus": ([_P] * 6 + [_I] * 5 + [_P], _I)}
 COL_TILE, ROW_TILE = 1024, 8
 
 
-def _check(lhs, base, slab, row, acc) -> None:
+def _check(lhs, base, slab, row, acc, kernel: str = "minplus_cuda",
+           dtype: torch.dtype = torch.float32) -> None:
+    """Raise on anything the indexed product kernel ``kernel`` does not take
+    (its values of ``dtype``); shared by the min-plus and count kernels."""
     named = {"lhs": lhs, "base": base, "slab": slab, "row": row, "acc": acc}
-    types = {"lhs": torch.float32, "base": torch.float32, "acc": torch.float32,
+    types = {"lhs": dtype, "base": dtype, "acc": dtype,
              "slab": torch.int64, "row": torch.int64}
     dims = {"lhs": 3, "base": 3, "acc": 3, "slab": 1, "row": 1}
     for name, t in named.items():
@@ -34,45 +37,45 @@ def _check(lhs, base, slab, row, acc) -> None:
             continue
         if t.device.type != "cuda" or t.device != lhs.device:
             raise ValueError(
-                f"minplus_cuda: {name} is on {t.device}, lhs on {lhs.device}; "
+                f"{kernel}: {name} is on {t.device}, lhs on {lhs.device}; "
                 "all operands must be CUDA tensors of one device"
             )
         if t.dtype != types[name]:
-            raise TypeError(f"minplus_cuda: {name} is {t.dtype}, not {types[name]}")
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, not {types[name]}")
         if t.dim() != dims[name]:
             raise ValueError(
-                f"minplus_cuda: {name} must be {dims[name]}-D, got {tuple(t.shape)}"
+                f"{kernel}: {name} must be {dims[name]}-D, got {tuple(t.shape)}"
             )
         if not t.is_contiguous():
-            raise ValueError(f"minplus_cuda: {name} is not contiguous")
+            raise ValueError(f"{kernel}: {name} is not contiguous")
     P, R, K = lhs.shape
     S, rows, C = base.shape
     if (slab if slab is not None else lhs).shape[0] != P or (
         row is not None and row.shape[0] != K
     ):
         raise ValueError(
-            f"minplus_cuda: lhs {tuple(lhs.shape)} needs slab ({P},) and row "
+            f"{kernel}: lhs {tuple(lhs.shape)} needs slab ({P},) and row "
             f"({K},), got {None if slab is None else tuple(slab.shape)} and "
             f"{None if row is None else tuple(row.shape)}"
         )
     if (slab is None and S < P) or (row is None and rows != K):
         raise ValueError(
-            f"minplus_cuda: base {tuple(base.shape)} does not contract with lhs "
+            f"{kernel}: base {tuple(base.shape)} does not contract with lhs "
             f"{tuple(lhs.shape)} (without an index: one slab per p, K rows)"
         )
     if acc is not None and tuple(acc.shape) != (P, R, C):
         raise ValueError(
-            f"minplus_cuda: acc is {tuple(acc.shape)}, the product is {(P, R, C)}"
+            f"{kernel}: acc is {tuple(acc.shape)}, the product is {(P, R, C)}"
         )
     blocks = -(-R // ROW_TILE) * -(-C // COL_TILE)
     if P > 65535 or max(R, K, C, rows, blocks) > 2**31 - 1:
         raise ValueError(
-            f"minplus_cuda: lhs {tuple(lhs.shape)} x base {tuple(base.shape)} is "
+            f"{kernel}: lhs {tuple(lhs.shape)} x base {tuple(base.shape)} is "
             "outside the launch (P <= 65535; counts within int32)"
         )
 
 
-def _check_indices(base, slab, row) -> None:
+def _check_indices(base, slab, row, kernel: str = "minplus_cuda") -> None:
     """Raise if an index names a slab or row outside ``base``: the one host
     sync of a call (the kernel would read out of bounds)."""
     given = [(t, high) for t, high in ((slab, base.shape[0]), (row, base.shape[1]))
@@ -83,7 +86,7 @@ def _check_indices(base, slab, row) -> None:
     for (lo, hi), (_, high) in zip(zip(ends[::2], ends[1::2]), given):
         if lo < 0 or hi >= high:
             raise ValueError(
-                f"minplus_cuda: an index in [{lo}, {hi}] falls outside [0, {high})"
+                f"{kernel}: an index in [{lo}, {hi}] falls outside [0, {high})"
             )
 
 

@@ -3,9 +3,10 @@
 A wrapper takes its kernel's plain torch version (``ref.py``) only for
 tensors on the CPU — because the caller asked for the CPU.  On a CUDA
 tensor it launches the hand-written kernel or raises; there is no
-fallback.  ``launches``, ``or_launches``, ``tile_launches`` and
-``minplus_launches`` count the launches of each kernel in this process, so
-a run can show that its main path went through the kernel.
+fallback.  ``launches``, ``or_launches``, ``tile_launches``,
+``minplus_launches`` and ``count_mm_launches`` count the launches of each
+kernel in this process, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from . import ref as _ref
 from .bitmm import bitmm_cuda, bitmm_or_cuda
+from .count_mm import count_mm_cuda
 from .minplus import minplus_cuda
 from .tile_bitmm import TileWork, tile_chunk_cuda
 
@@ -24,6 +26,8 @@ or_launches = 0
 tile_launches = 0
 #: launches of the CUDA min-plus kernel (likewise)
 minplus_launches = 0
+#: launches of the CUDA saturating count kernel (likewise)
+count_mm_launches = 0
 
 
 def bitmm(lhs_packed: torch.Tensor, rhs_packed: torch.Tensor) -> torch.Tensor:
@@ -162,4 +166,28 @@ def minplus(
     out = minplus_cuda(lhs, base, slab, row, acc)
     if out.numel():
         minplus_launches += 1
+    return out
+
+
+def count_mm(
+    lhs: torch.Tensor,
+    base: torch.Tensor,
+    slab: torch.Tensor | None = None,
+    row: torch.Tensor | None = None,
+    acc: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The count closures' saturating product with the rhs gathered by
+    index, on uint32 counts in int32 storage (SAT = 2^32 - 1, stored as
+    -1): ``out[p, i, j] = min(SAT, acc[p, i, j] + sum_k min(SAT, lhs[p, i,
+    k] * base[slab[p], row[k], j]))``, (P, R, K) x (S, rows, C) -> a new
+    (P, R, C) int32 tensor; ``slab`` (P,) and ``row`` (K,) int64 name the
+    rhs rows of ``base`` (the identity where absent), ``acc`` (P, R, C) is
+    only read (0 where absent).  Bit-equal on either device."""
+    global count_mm_launches
+    operands = [t for t in (lhs, base, slab, row, acc) if t is not None]
+    if all(t.device.type == "cpu" for t in operands):
+        return _ref.count_mm_ref(lhs, base, slab, row, acc)
+    out = count_mm_cuda(lhs, base, slab, row, acc)
+    if out.numel():
+        count_mm_launches += 1
     return out

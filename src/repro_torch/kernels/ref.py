@@ -151,3 +151,82 @@ def minplus_ref(
         cand = (lk[:, :, :, None] + rk[:, :, None, :]).amin(dim=1)
         torch.minimum(out, cand, out=out)
     return out
+
+
+#: the saturation sentinel of the count semiring, 2^32 - 1: the all-ones
+#: word, which int32 storage reads as -1
+SAT_COUNT = 0xFFFFFFFF
+
+#: bytes the plain count product's ``(P, rows, chunk, cols)`` int64
+#: temporaries may take, per device type (as ``MINPLUS_TEMP_BYTES``); the
+#: result does not depend on the chunk (a saturating sum of non-negative
+#: terms is ``min(SAT, the sum)`` in any order)
+COUNT_TEMP_BYTES = {"cuda": 2 << 30, "cpu": 16 << 20}
+
+
+def count_chunk(P: int, rows: int, cols: int, K: int, device_type: str) -> int:
+    """Contraction chunk of :func:`count_mm_ref` under ``COUNT_TEMP_BYTES``:
+    about four int64 temporaries of ``(P, rows, chunk, cols)`` are live."""
+    per_k = 32 * max(P * rows * cols, 1)
+    return max(1, min(K, COUNT_TEMP_BYTES[device_type] // per_k))
+
+
+def as_unsigned(t: torch.Tensor) -> torch.Tensor:
+    """uint32 counts held in int32 storage as int64 values in [0, 2^32)."""
+    return t.to(torch.int64) & SAT_COUNT
+
+
+def as_storage(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) back to int32 storage with the same bits
+    (values from 2^31 up read as negative)."""
+    return (u - ((u >> 31) << 32)).to(torch.int32)
+
+
+def sat_mul_unsigned(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``min(SAT, a * b)`` on int64 values in [0, SAT], without overflow:
+    the product exceeds SAT iff ``b > 0`` and ``a > SAT // b`` (the
+    reference's test), and then it is not formed."""
+    over = (b > 0) & (a > SAT_COUNT // b.clamp_min(1))
+    return torch.where(over, SAT_COUNT, torch.where(over, 0, a) * b)
+
+
+def count_mm_ref(
+    lhs: torch.Tensor,
+    base: torch.Tensor,
+    slab: torch.Tensor | None = None,
+    row: torch.Tensor | None = None,
+    acc: torch.Tensor | None = None,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Saturating count product with the rhs gathered by index, on uint32
+    counts in int32 storage: ``out[p, i, j] = min(SAT, acc[p, i, j] +
+    sum_k min(SAT, lhs[p, i, k] * base[slab[p], row[k], j]))``, (P, R, K)
+    x (S, rows, C) -> a new (P, R, C) int32 tensor (``acc`` is only read;
+    without it the first term is 0; without ``slab`` or ``row`` the index
+    is the identity).  With both indices absent and no ``acc`` it is the
+    reference's ``_count_mm(lhs, base)``.
+
+    Computed in int64 on the operands masked to 32 bits, tiled over the
+    contraction axis; ``chunk=None`` takes the chunk from the device's
+    ``COUNT_TEMP_BYTES``.  Each product is clamped to SAT before the sum
+    (a chunk's sum of at most 2^31 such terms fits in int64), and the
+    running total is clamped after each chunk."""
+    P, rows, K = lhs.shape
+    cols = base.shape[-1]
+    if acc is not None:
+        total = as_unsigned(acc)
+    else:
+        total = torch.zeros((P, rows, cols), dtype=torch.int64, device=lhs.device)
+    if K:
+        if chunk is None:
+            chunk = count_chunk(P, rows, cols, K, lhs.device.type)
+        slabs = slab if slab is not None else torch.arange(P, device=lhs.device)
+        for c0 in range(0, K, chunk):
+            ks = slice(c0, c0 + chunk)
+            idx = row[ks] if row is not None else torch.arange(
+                c0, min(c0 + chunk, K), device=lhs.device)
+            rk = as_unsigned(base[slabs[:, None], idx[None, :]])  # (P, ch, cols)
+            lk = as_unsigned(lhs[:, :, ks])  # (P, rows, ch)
+            part = sat_mul_unsigned(lk[:, :, :, None], rk[:, None, :, :]).sum(dim=2)
+            total = (total + part).clamp_max_(SAT_COUNT)
+    return as_storage(total)

@@ -7,10 +7,10 @@ details.  Each bundle registers its families on a registry once and
 caches labeled children up front, so hot-path calls (``observe_flush``,
 ``observe_cache``) are attribute bumps with no dict construction.
 
-This is the port's slice of the reference's bundles: the serving
-families, and the engine's plan-cache, closure, delta and block-sparse
-families (with ``delta_epoch_lag``, which the serving loop sets).  The
-count families come with the slice that feeds them.
+The port's bundles carry every family of the reference's: the serving
+families, and the engine's plan-cache, closure, delta (the count states'
+repairs and drops among them), block-sparse and count-state families
+(with ``delta_epoch_lag``, which the serving loop sets).
 
 Bundles are memoized per registry (:meth:`ServeMetrics.on`): the server
 and the engine can both ask for "the serve metrics of this registry" and
@@ -128,8 +128,8 @@ class ServeMetrics(_Bundle):
 
 
 class EngineMetrics(_Bundle):
-    """Engine-side families: plan cache, closure calls, delta repair and
-    the block-sparse state's occupancy."""
+    """Engine-side families: plan cache, closure calls, delta repair, the
+    block-sparse state's occupancy and the count state's mask."""
 
     _slot = "_repro_engine_bundle"
 
@@ -164,6 +164,21 @@ class EngineMetrics(_Bundle):
             "Fixpoint iterations spent in delta repair closures",
             registry=registry,
         )
+        self.delta_count_repairs = Counter(
+            "delta_count_repairs_total",
+            "Counting states repaired by insert-only recount",
+            registry=registry,
+        )
+        self.delta_count_drops = Counter(
+            "delta_count_drops_total",
+            "Counting states dropped whole by a deletion delta",
+            registry=registry,
+        )
+        self.count_active_rows = Gauge(
+            "count_state_active_rows",
+            "Materialized mask rows of the last count-served closure state",
+            registry=registry,
+        )
         self.delta_epoch = Gauge(
             "delta_epoch", "Current graph epoch of the engine",
             registry=registry,
@@ -194,6 +209,12 @@ class EngineMetrics(_Bundle):
         self.delta_rows_repaired.inc(stats.rows_repaired)
         self.delta_rows_evicted.inc(stats.rows_evicted)
         self.delta_repair_iters.inc(stats.repair_iters)
+        self.delta_count_repairs.inc(stats.count_repairs)
+        self.delta_count_drops.inc(stats.count_drops)
+
+    def observe_count_state(self, active_rows: int) -> None:
+        """Record the mask size of a just-served counting state."""
+        self.count_active_rows.set(float(active_rows))
 
     def observe_blocksparse(self, occupied: int) -> None:
         """Record the occupied-block count of a blocksparse-served state."""

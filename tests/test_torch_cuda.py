@@ -577,3 +577,106 @@ def test_fixpoint_on_card_raises_on_a_pair_out_of_range(card, monkeypatch):
     monkeypatch.setattr(tbs, "_chunk_operands", bad_operands)
     with pytest.raises(RuntimeError, match="outside its range"):
         tbs.blocksparse_closure_state(graph, g, tile=64, device=card)
+
+
+# ---------------------------------------------------------------------- #
+# conjunctive and count semantics on the card
+# ---------------------------------------------------------------------- #
+
+SAT = 0xFFFFFFFF
+
+
+def _counts(rng, shape, nonzero, kind):
+    """uint32 counts in int32 storage: small values, values near 2^16
+    (their products pass 2^32) or SAT itself, zero outside a share
+    ``nonzero`` of the entries."""
+    if kind == "small":
+        a = rng.integers(1, 50, size=shape, dtype=np.uint64)
+    elif kind == "2^16":
+        a = rng.integers(2**16 - 40, 2**16 + 40, size=shape, dtype=np.uint64)
+    else:
+        a = np.full(shape, SAT, dtype=np.uint64)
+    a[rng.random(shape) >= nonzero] = 0
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["small", "2^16", "sat"])
+@pytest.mark.parametrize("P, R, K, C", [(3, 50, 70, 90), (2, 9, 1, 1030),
+                                        (6, 33, 991, 2048)])
+def test_count_mm_kernel_matches_plain_version(card, kind, P, R, K, C):
+    """Plain, index (a permuted slab, repeated unsorted rows of a larger
+    base) and acc forms, rows of zeros, C off a multiple of 4 and past one
+    column tile: the kernel equals the plain version bit for bit, and each
+    call counts one launch."""
+    rng = np.random.default_rng(P * 100 + K)
+    lhs = _counts(rng, (P, R, K), 0.05, kind)
+    lhs[:, ::3] = 0
+    rhs = _counts(rng, (P, K, C), 0.5, kind)
+    base = _counts(rng, (P + 2, K + 7, C), 0.5, "small")
+    slab = torch.from_numpy(rng.permutation(P + 2)[:P])
+    row = torch.from_numpy(rng.integers(0, K + 7, size=K))
+    acc = _counts(rng, (P, R, C), 0.2, kind)
+    for args, kwargs in (((lhs, rhs), {}), ((lhs, base, slab, row), {}),
+                         ((lhs, base, slab, row), {"acc": acc})):
+        want = ref.count_mm_ref(*args, **kwargs)
+        before = ops.count_mm_launches
+        got = ops.count_mm(*(t.to(card) for t in args),
+                           **{k: v.to(card) for k, v in kwargs.items()})
+        torch.cuda.synchronize()
+        assert ops.count_mm_launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_count_mm_kernel_rejects_what_it_does_not_take(card):
+    lhs = torch.ones((2, 4, 8), dtype=torch.int32, device=card)
+    base = torch.ones((3, 8, 16), dtype=torch.int32, device=card)
+    row = torch.arange(8, device=card)
+    with pytest.raises(TypeError, match="not torch.int32"):
+        ops.count_mm(lhs.long(), base)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.count_mm(lhs.transpose(1, 2).contiguous().transpose(1, 2), base)
+    with pytest.raises(ValueError, match="one device"):
+        ops.count_mm(lhs, base.cpu())
+    with pytest.raises(ValueError, match="outside"):
+        ops.count_mm(lhs, base, row=row + 1)
+    before = ops.count_mm_launches
+    assert ops.count_mm(lhs[:, :0], base).shape == (2, 0, 16)  # empty: no launch
+    assert ops.count_mm_launches == before
+
+
+@pytest.mark.parametrize("backend", ["dense", "bitpacked", "auto"])
+def test_conjunctive_and_count_on_card_match_cpu(card, backend):
+    """Conjunctive (Query 1 as one conjunct per production) and count
+    queries on the card equal the same engine on the CPU, with an
+    insert-only edit repaired on both; the card ran its kernels."""
+    from repro_torch.core.conjunctive import ConjunctiveGrammar
+    from repro_torch.core.graph import Graph
+
+    graph = paper_table_graph("skos")  # the CPU's plain count product is slow
+    g = query1_grammar().to_cnf()
+    conj = ConjunctiveGrammar.from_rules(
+        {x: [g.nonterms[a] for a in lhss] for x, lhss in g.term_prods.items()},
+        [(g.nonterms[a], [(g.nonterms[b], g.nonterms[c])])
+         for a, b, c in g.binary_prods])
+    batches = [[Query(conj, "S", sources=(0, 7), semantics="conjunctive"),
+                Query(g, "S", sources=(0, 7), semantics="count")],
+               [Query(conj, "S", semantics="conjunctive"),
+                Query(g, "S", semantics="count")]]
+    engines = {dev: QueryEngine(Graph(graph.n_nodes, list(graph.edges)),
+                                config=EngineConfig(engine=backend, device=dev))
+               for dev in ("cpu", "cuda")}
+    before = ops.launches, ops.count_mm_launches
+    for batch in batches + [None] + batches:
+        if batch is None:
+            for eng in engines.values():  # type_r·type: a new S-pair (3, 5)
+                st = eng.apply_delta(insert=[(3, "type_r", 100), (100, "type", 5)])
+                assert st.conj_repairs == 1 and st.count_repairs == 1
+            continue
+        want = engines["cpu"].query_batch(batch)
+        got = engines["cuda"].query_batch(batch)
+        assert [r.pairs for r in got] == [r.pairs for r in want]
+        assert [r.counts for r in got] == [r.counts for r in want]
+    assert ops.count_mm_launches > before[1]
+    if backend == "bitpacked":
+        assert ops.launches > before[0]
+

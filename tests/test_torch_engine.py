@@ -157,14 +157,6 @@ def test_iteration_events_match_reference():
     assert events(tt) and events(tt) == events(jt)
 
 
-@pytest.mark.parametrize("semantics", ["conjunctive", "count"])
-def test_unported_semantics_name_their_roadmap_item(semantics):
-    _, tg = _graphs()
-    engine = QueryEngine(tg, config=EngineConfig(device="cpu"))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        engine.query(Query(T_GRAMMARS["q1"], "S", semantics=semantics))
-
-
 def test_engine_on_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -48,9 +48,9 @@ def test_the_port_has_the_slice_modules():
     assert {
         "core/grammar.py", "core/graph.py", "core/matrices.py",
         "core/closure.py", "core/semantics.py", "core/blocksparse.py",
-        "baselines/hellings.py",
+        "core/conjunctive.py", "baselines/hellings.py",
         "kernels/ref.py", "kernels/bitmm.py", "kernels/ops.py",
-        "kernels/tile_bitmm.py", "kernels/minplus.py",
+        "kernels/tile_bitmm.py", "kernels/minplus.py", "kernels/count_mm.py",
         "obs/trace.py", "obs/metrics.py", "obs/instruments.py",
         "obs/export.py", "obs/chrome.py",
         "delta/txn.py", "delta/repair.py", "engine/stats.py", "engine/config.py",
@@ -58,5 +58,5 @@ def test_the_port_has_the_slice_modules():
         "serve/config.py", "serve/coalesce.py", "serve/server.py",
         "serve/loadgen.py", "serve/__init__.py",
     } <= names
-    for source in ("bitmm.cu", "tile_bitmm.cu", "minplus.cu"):
+    for source in ("bitmm.cu", "tile_bitmm.cu", "minplus.cu", "count_mm.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / source).exists()
