@@ -15,7 +15,9 @@ their two paths, sparse row gather and staged dense tiles, forced;
 128, as the fixpoint's chunks, runs of pairs sharing an lhs slot
 included; ``minplus``
 bit-equal on random cases: finite shares 1e-4 to 1, ragged shapes, rows
-without a finite entry, the index and the acc forms, K = 15,872); drives the port's main
+without a finite entry, the index and the acc forms, K = 15,872, and the
+cases of SPARSE_ROW_CASES that reach each branch of its sparse-row design:
+lists that overflow, K = 0, misaligned operands, acc at inf); drives the port's main
 path (relational CFPQ served by ``repro_torch.engine.QueryEngine``) at
 full size — ``paper_table_graph("pizza").repeat(16)``, 15,856 nodes padded
 to n = 15,872, with Query 1 in CNF — and checks every answer against the
@@ -52,14 +54,17 @@ the count semantics (Query 1's path counts at the main path's size
 through the engine, (7, 15,872, 15,872) uint32 planes, against a scipy
 Jacobi on one copy; a recount after an insert, a drop after a delete,
 the saturation goldens, bounded all-path enumeration checked by CYK),
-with ``count_mm`` held bit-equal to its plain version on 45 random cases
-and on both real states and timed at the all-pairs and the 16-source
+with ``count_mm`` held bit-equal to its plain version on 66 cases (45
+random, 21 of SPARSE_ROW_CASES: acc at SAT among them) and on both real
+states and timed at the all-pairs and the 16-source
 shapes beside its bound, its plain version and a float64 matmul.  Last, the
 kernels are timed at the main path's shapes (one call, device time, with
 L2 cold, and per path) and over a density sweep that shows where the two
-paths cross.  ``--baseline-cu`` names another revision's kernel source (say, the
+paths cross.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
-device time is timed beside this one's on the same operands.  Each phase
+device time is timed beside this one's on the same operands; so are the
+``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
+``count_mm_timing`` operands (before and after this revision's kernel).  Each phase
 prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero; so does a machine
 without a CUDA device.
@@ -1708,7 +1713,44 @@ def minplus_bound(lhs, base, slab, row, finite_only: bool = True) -> dict:
             "finite_lhs": nnz, "rhs_rows_read": rhs_rows}
 
 
-def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dict:
+def baseline_rows_ms(fn, lhs, base, slab, row, acc, want, reps: int) -> list[float]:
+    """Device time of another revision's min-plus or count kernel (its C
+    entry point ``fn``, whose arguments are this revision's) on these
+    operands, after checking that it computes ``want``: timed before and
+    after this revision's kernel, so the two alternate (baseline, this,
+    baseline)."""
+    P, R, K = lhs.shape
+    out = torch.empty_like(want)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def run():
+        return fn(lhs.data_ptr(), base.data_ptr(), ptr(slab), ptr(row), ptr(acc),
+                  out.data_ptr(), P, R, K, base.shape[2], base.shape[1], stream)
+
+    check(run() == 0, f"the baseline {fn.__name__} did not launch")
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"the baseline {fn.__name__} != this kernel")
+    return [device_ms(run, reps=reps)]
+
+
+def with_baseline(times: dict, fn, reps: int, baseline, entry: str, *operands) -> None:
+    """Add ``ms_device_baseline`` to ``times`` (which has this kernel's
+    ``ms_device``) with ``baseline`` (another revision's library): its
+    ``entry`` timed before this kernel and after it, and this kernel once
+    more between them (``ms_device_again``)."""
+    if baseline is None:
+        return
+    first = baseline_rows_ms(getattr(baseline, entry), *operands, reps=reps)
+    times["ms_device_again"] = device_ms(fn, reps=reps)
+    times["ms_device_baseline"] = first + baseline_rows_ms(
+        getattr(baseline, entry), *operands, reps=reps)
+
+
+def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float,
+                   baseline=None) -> dict:
     """One dense single-path iteration's min-plus product at R = 1024 on
     rows of the state, as the closure calls it: lhs (P, R, R) the active
     block, the rhs rows named in L by the productions' C operands and the
@@ -1718,7 +1760,9 @@ def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dic
     back to back (``ms_device``), the plain version; beside its bound
     counting the data (the finite lhs entries and the rhs rows they name)
     and the bound of the dense product (every candidate).  Then the same
-    shape with a fully finite random lhs, beside its operations bound."""
+    shape with a fully finite random lhs, beside its operations bound.
+    With ``baseline`` (another revision's min-plus library) its device time
+    on both operands too (:func:`with_baseline`)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.minplus import minplus_launch
 
@@ -1747,6 +1791,9 @@ def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dic
     del want, rows, rows_d, lhs_d, acc
     bnd = minplus_bound(lhs, L, c_idx, idx)
     dense = minplus_bound(lhs, L, c_idx, idx, finite_only=False)
+    def run():
+        minplus_launch(lhs, L, c_idx, idx, None, out)
+
     row = {
         "name": "minplus", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
@@ -1756,11 +1803,12 @@ def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dic
         "plain_ms": time_ms(lambda: ref.minplus_ref(lhs, L, c_idx, idx), reps=2),
         "bound_ms": bnd.pop("bound_ms"), "bound_by": bnd.pop("bound_by"),
         "library_ms": None,
-        "ms_device": device_ms(
-            lambda: minplus_launch(lhs, L, c_idx, idx, None, out), reps=20),
+        "ms_device": device_ms(run, reps=20),
         "R": rows_n, "K": K, "C": L.shape[-1], "P": P, **bnd,
         "dense_bound_ms": dense["bound_ms"], "dense_bound_by": dense["bound_by"],
     }
+    with_baseline(row, run, 20, baseline, "repro_minplus",
+                  lhs, L, c_idx, idx, None, out)
     gen = torch.Generator(device=L.device)
     gen.manual_seed(4)
     full = random_lengths(gen, tuple(lhs.shape), 1.0, L.device)
@@ -1768,12 +1816,17 @@ def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dic
     check(torch.equal(got, ref.minplus_ref(full, L, c_idx, idx)),
           "minplus != its plain version on a fully finite lhs")
     fbnd = minplus_bound(full, L, c_idx, idx)
+
+    def run_full():
+        minplus_launch(full, L, c_idx, idx, None, got)
+
     row["finite_lhs_case"] = {
         "ms": time_ms(lambda: ops.minplus(full, L, c_idx, idx), reps=3),
-        "ms_device": device_ms(
-            lambda: minplus_launch(full, L, c_idx, idx, None, got), reps=3),
+        "ms_device": device_ms(run_full, reps=3),
         **fbnd,
     }
+    with_baseline(row["finite_lhs_case"], run_full, 3, baseline, "repro_minplus",
+                  full, L, c_idx, idx, None, got)
     del lhs, out, full, got
     torch.cuda.empty_cache()
     emit("minplus_timing", **row)
@@ -1786,6 +1839,60 @@ def minplus_timing(L: torch.Tensor, mask: np.ndarray, tables, err: float) -> dic
 MINPLUS_SHAPES = ((3, 37, 45, 101), (2, 130, 33, 1030), (1, 8, 1, 4),
                   (6, 64, 991, 2048), (6, 16, 15872, 1100))
 MINPLUS_DENSITIES = (1e-4, 1e-2, 1.0)  # share of finite lhs entries
+
+
+#: (name, P, R, K, C) of the cases that reach each branch of the sparse-row
+#: design (csrc/sparse_rows.cuh), beside the random shapes above: rows whose
+#: list overflows a warp's 512 entries (fully taken rows among empty ones;
+#: lists of exactly 512 and 513 entries), K = 0, R off the 8-row block and
+#: C off 4 and the 512-column tile, a misaligned lhs (its 4-byte fringe
+#: beside a 16-byte body) and misaligned operands (the single-column
+#: sweep), acc at its absorbing value (SAT or inf), one row of one column
+SPARSE_ROW_CASES = (
+    ("overflow rows among empty ones", 2, 45, 1500, 777),
+    ("lists of 512 and 513 entries", 1, 9, 1030, 516),
+    ("K = 0", 2, 9, 0, 100),
+    ("one row, one column", 1, 1, 7, 1),
+    ("misaligned lhs", 3, 13, 50, 1028),
+    ("misaligned operands", 2, 11, 51, 1024),
+    ("acc absorbing", 2, 17, 300, 600),
+)
+
+
+def three_forms(lhs, rhs, base, slab, row, acc):
+    """(form, args, kwargs) of the min-plus and count kernels' three forms:
+    plain (rhs (P, K, C)), index (rhs rows of ``base`` by slab and row) and
+    acc (the index form with ``acc``)."""
+    return (("plain", (lhs, rhs), {}), ("index", (lhs, base, slab, row), {}),
+            ("acc", (lhs, base, slab, row), {"acc": acc}))
+
+
+def sparse_row_operands(gen, case, values, empty, top, dev):
+    """lhs, base, slab, row and acc of one SPARSE_ROW_CASES case;
+    ``values(shape, share)`` draws ring values taken at ``share`` (``empty``
+    elsewhere: 0 or inf), ``top`` is the absorbing value (SAT or inf)."""
+    name, P, R, K, C = case
+    lhs = values((P, R, K), 0.05)
+    lhs[:, ::4] = empty  # rows without a taken entry
+    if name == "overflow rows among empty ones":
+        lhs.fill_(empty)
+        lhs[:, [3, 17, 40]] = values((P, 3, K), 1.0)
+        lhs[:, 5] = values((P, K), 0.5)
+    elif name == "lists of 512 and 513 entries":
+        lhs.fill_(empty)
+        for i, m in enumerate((512, 513, 1024, K)):
+            lhs[:, i, :m] = values((P, m), 1.0)
+    base = values((P + 1, K + 3, C), 0.5)
+    slab = torch.randperm(P + 1, generator=gen, device=dev)[:P]
+    row = torch.randint(0, K + 3, (K,), generator=gen, device=dev)
+    acc = values((P, R, C), 0.3)
+    if name == "acc absorbing":
+        acc[:, ::2] = top
+    if name.startswith("misaligned"):
+        lhs = misaligned(lhs)
+        if name == "misaligned operands":
+            base, acc = misaligned(base), misaligned(acc)
+    return lhs, base, slab, row, acc
 
 
 def random_lengths(gen, shape, finite: float, dev, integral: bool = True):
@@ -1821,10 +1928,7 @@ def phase_minplus_checks(dev) -> float:
                 slab = torch.randperm(P + 1, generator=gen, device=dev)[:P]
                 row = torch.randint(0, K + 3, (K,), generator=gen, device=dev)
                 acc = random_lengths(gen, (P, R, C), 0.3, dev, integral)
-                for form, args, kwargs in (
-                        ("plain", (lhs, rhs), {}),
-                        ("index", (lhs, base, slab, row), {}),
-                        ("acc", (lhs, base, slab, row), {"acc": acc})):
+                for form, args, kwargs in three_forms(lhs, rhs, base, slab, row, acc):
                     got = ops.minplus(*args, **kwargs)
                     want = ref.minplus_ref(*args, **kwargs)
                     same = torch.isinf(got) == torch.isinf(want)
@@ -1836,14 +1940,28 @@ def phase_minplus_checks(dev) -> float:
                           f"finite {d}, {form}, integral {integral}")
                     cases += 1
                 del lhs, rhs, base, acc
+    inf = float("inf")
+    for case in SPARSE_ROW_CASES:
+        lhs, base, slab, row, acc = sparse_row_operands(
+            gen, case, lambda shape, d: random_lengths(gen, shape, d, dev),
+            inf, inf, dev)
+        rhs = base[slab][:, row].contiguous()
+        for form, args, kwargs in three_forms(lhs, rhs, base, slab, row, acc):
+            got = ops.minplus(*args, **kwargs)
+            check(torch.equal(got, ref.minplus_ref(*args, **kwargs)),
+                  f"minplus != its plain version: {case}, {form}")
+            cases += 1
+        del lhs, rhs, base, acc
     torch.cuda.synchronize()
     emit("minplus_checks", kernel="minplus", cases=cases, max_abs_err=err,
          shapes=[list(x) for x in MINPLUS_SHAPES], densities=MINPLUS_DENSITIES,
+         sparse_row_cases=[c[0] for c in SPARSE_ROW_CASES],
          tolerance="bit equality (torch.equal)")
     return err
 
 
-def phase_single_path(dev, backend: str, minplus_err: float | None = None):
+def phase_single_path(dev, backend: str, minplus_err: float | None = None,
+                      baseline=None):
     """Single-path CFPQ at full width on ``backend``: a cold batch of 16
     single-source queries in pizza copy 0, a second batch of 16, the
     Section 5 golden case, then seeded edits to copy 0 through
@@ -1854,7 +1972,8 @@ def phase_single_path(dev, backend: str, minplus_err: float | None = None):
     support against a fresh engine's closure, and that the cold batch and
     the edit launched the min-plus kernel.  With ``minplus_err`` (the
     largest error of the kernel's checks) it also times one min-plus
-    product on the state (:func:`minplus_timing`).  Returns ``(min-plus
+    product on the state (:func:`minplus_timing`; ``baseline``: another
+    revision's min-plus library timed beside it).  Returns ``(min-plus
     launches of the phase's batches and edit, the timing row or None)``."""
     from repro_torch.core.grammar import query1_grammar
     from repro_torch.core.graph import Graph, paper_example_graph, paper_table_graph
@@ -1919,7 +2038,7 @@ def phase_single_path(dev, backend: str, minplus_err: float | None = None):
     (st,) = eng._states.values()
     check(state_equals_mirror(st.sp_L, st.sp_L_host),
           f"single_path_{backend}: host mirror != device state")
-    timing = (minplus_timing(st.sp_L, st.sp_mask, st.tables, minplus_err)
+    timing = (minplus_timing(st.sp_L, st.sp_mask, st.tables, minplus_err, baseline)
               if minplus_err is not None else None)
 
     # the paper's example: (1, 2) freezes at 2, (0, 2) at 4, (0, 0) at 6
@@ -2464,19 +2583,29 @@ def phase_count_checks(dev) -> int:
             slab = torch.randperm(P + 1, generator=gen, device=dev)[:P]
             row = torch.randint(0, K + 3, (K,), generator=gen, device=dev)
             acc = random_counts(gen, (P, R, C), 0.3, kind, dev)
-            for form, args, kwargs in (
-                    ("plain", (lhs, rhs), {}),
-                    ("index", (lhs, base, slab, row), {}),
-                    ("acc", (lhs, base, slab, row), {"acc": acc})):
+            for form, args, kwargs in three_forms(lhs, rhs, base, slab, row, acc):
                 got = ops.count_mm(*args, **kwargs)
                 check(torch.equal(got, ref.count_mm_ref(*args, **kwargs)),
                       f"count_mm != its plain version: {(P, R, K, C)}, "
                       f"non-zero {d}, {kind}, {form}")
                 cases += 1
             del lhs, rhs, base, acc
+    for ci, case in enumerate(SPARSE_ROW_CASES):
+        kind = COUNT_KINDS[ci % len(COUNT_KINDS)]
+        lhs, base, slab, row, acc = sparse_row_operands(
+            gen, case, lambda shape, d: random_counts(gen, shape, d, kind, dev),
+            0, -1, dev)  # -1: SAT in int32 storage
+        rhs = base[slab][:, row].contiguous()
+        for form, args, kwargs in three_forms(lhs, rhs, base, slab, row, acc):
+            got = ops.count_mm(*args, **kwargs)
+            check(torch.equal(got, ref.count_mm_ref(*args, **kwargs)),
+                  f"count_mm != its plain version: {case}, {kind}, {form}")
+            cases += 1
+        del lhs, rhs, base, acc
     torch.cuda.synchronize()
     emit("count_checks", kernel="count_mm", cases=cases, max_abs_err=0,
          shapes=[list(x) for x in MINPLUS_SHAPES], densities=MINPLUS_DENSITIES,
+         sparse_row_cases=[c[0] for c in SPARSE_ROW_CASES],
          kinds=COUNT_KINDS, tolerance="bit equality (torch.equal)")
     return cases
 
@@ -2502,7 +2631,7 @@ def count_bound(lhs, base, slab, row, acc) -> dict:
             "nonzero_lhs": nnz, "rhs_rows_read": rhs_rows}
 
 
-def count_mm_timing(label: str, state) -> dict:
+def count_mm_timing(label: str, state, baseline=None) -> dict:
     """One Jacobi product of the count closure on a served state, as the
     closure makes it: the production whose lhs has the most non-zero
     entries, lhs (1, R, R) the active block of its B plane, rhs the rows of
@@ -2512,7 +2641,9 @@ def count_mm_timing(label: str, state) -> dict:
     against a float64 ``torch.matmul`` of the same operands (exact while
     every sum stays below 2^53); timed: one call, device time of launches
     back to back, the plain version (on the 64 rows past R = 1,024), the
-    float64 matmul (the library yardstick, which the port never calls)."""
+    float64 matmul (the library yardstick, which the port never calls).
+    With ``baseline`` (another revision's count library) its device time on
+    the same operands too (:func:`with_baseline`)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.count_mm import count_mm_launch
 
@@ -2552,6 +2683,8 @@ def count_mm_timing(label: str, state) -> dict:
                                reps=20),
         "shape": label, "production": p, "R": R, "K": R, "C": C.shape[-1], **bnd,
     }
+    with_baseline(row, lambda: count_mm_launch(lhs, C, slab, idx, acc, out), 20,
+                  baseline, "repro_count_mm", lhs, C, slab, idx, acc, out)
     del lhs, acc, out, L64, R64
     torch.cuda.empty_cache()
     emit("count_mm_timing", **row)
@@ -2586,7 +2719,7 @@ def count_paths(eng, g, counts: dict, pairs, max_len: int) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def phase_count(dev) -> tuple[int, list[dict]]:
+def phase_count(dev, baseline=None) -> tuple[int, list[dict]]:
     """Count CFPQ at full width (BASE_GRAPH x PIZZA_COPIES, Query 1): all
     pairs through the engine (the count state is (7, n, n) int32), a
     16-source batch in copy 0, the all-pairs query pinned to bitpacked
@@ -2595,8 +2728,9 @@ def phase_count(dev) -> tuple[int, list[dict]]:
     an insert-only edit of copy 0 (recounted, against a fresh engine), an
     edit with a delete (dropped), the saturation golden cases, bounded
     all-path enumeration on 8 pairs of copy 0, and one count product timed
-    at each shape (:func:`count_mm_timing`).  Every closure must launch
-    ``count_mm``.  Returns (its launches, the timing rows)."""
+    at each shape (:func:`count_mm_timing`, beside ``baseline``: another
+    revision's count library).  Every closure must launch ``count_mm``.
+    Returns (its launches, the timing rows)."""
     from repro_torch.core.grammar import Grammar, query1_grammar
     from repro_torch.core.graph import Graph, paper_table_graph
     from repro_torch.engine import CompiledClosureCache, EngineConfig, Query, QueryEngine
@@ -2645,7 +2779,7 @@ def phase_count(dev) -> tuple[int, list[dict]]:
     st = serve("allpairs_dense", eng, [Query(g, "S", semantics="count")], oracle)
     check(tuple(st.cnt_C.shape) == (g.n_nonterms, eng.n, eng.n), "count state shape")
     check(state_equals_mirror(st.cnt_C, st.cnt_C_host), "count host mirror != device")
-    rows.append(count_mm_timing("allpairs", st))
+    rows.append(count_mm_timing("allpairs", st, baseline))
     labels = sorted(g.term_prods)
     rng = np.random.default_rng(13)
     inserts = [(int(rng.integers(off)), labels[int(rng.integers(len(labels)))],
@@ -2700,7 +2834,7 @@ def phase_count(dev) -> tuple[int, list[dict]]:
                [Query(g, "S", sources=(int(s),), semantics="count") for s in srcs], oracle)
     check(calls["batch_auto"]["route"] == "dense:masked+count",
           f"auto routed a count batch to {calls['batch_auto']['route']}")
-    rows.append(count_mm_timing(f"batch{COUNT_SOURCES}", st))
+    rows.append(count_mm_timing(f"batch{COUNT_SOURCES}", st, baseline))
     top = sorted(one, key=lambda k: -one[k])[:4]
     rest = [k for k in sorted(one) if k not in top]
     picks = top + [rest[int(i)] for i in np.random.default_rng(4).choice(
@@ -2729,12 +2863,36 @@ def phase_count(dev) -> tuple[int, list[dict]]:
     return launches, rows
 
 
+def load_baselines(bitmm_cu: Path):
+    """Build another revision's kernels: its ``bitmm.cu`` and, where they
+    lie beside it, its ``minplus.cu`` and ``count_mm.cu``.  Returns the
+    bitmm library and ``{"minplus": lib, "count_mm": lib}``, and prints the
+    build's registers and spills per instance."""
+    from repro_torch.kernels import bitmm as kbitmm
+    from repro_torch.kernels import count_mm as kcount
+    from repro_torch.kernels import minplus as kminplus
+
+    base, _ = kbitmm.load(bitmm_cu)
+    libs, instances = {}, {}
+    for name, mod, parse in (("minplus", kminplus, minplus_instances),
+                             ("count_mm", kcount, count_instances)):
+        source = bitmm_cu.parent / f"{name}.cu"
+        if source.exists():
+            libs[name], info = kbitmm.load(source, mod.ENTRIES)
+            instances[name] = parse(info["log"])
+    emit("baseline_build", source=str(bitmm_cu.parent), kernels=sorted(libs),
+         instances=instances)
+    return base, libs
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--baseline-cu", type=Path, default=None,
         help="another revision's csrc/bitmm.cu: its kernels are also timed "
-             "(device time) on the kernel_timing rows' operands")
+             "(device time) on the kernel_timing rows' operands, and the "
+             "minplus.cu and count_mm.cu beside it on the minplus_timing and "
+             "count_mm_timing rows' operands")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails here outside a checkout)
@@ -2743,11 +2901,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    base = None
+    base, rows_base = None, {}
     if args.baseline_cu is not None:
-        from repro_torch.kernels import bitmm as kbitmm
-
-        base, _ = kbitmm.load(args.baseline_cu.resolve())
+        base, rows_base = load_baselines(args.baseline_cu.resolve())
     phase_kernel_checks(dev)
     phase_bitmm_or_checks(dev)
     tile_err = phase_tile_checks(dev)
@@ -2764,13 +2920,14 @@ def main() -> None:
     minplus_launches, minplus_row = 0, None
     for backend in ("dense", "frontier", "auto"):
         n, timing = phase_single_path(
-            dev, backend, minplus_err if backend == "dense" else None)
+            dev, backend, minplus_err if backend == "dense" else None,
+            rows_base.get("minplus"))
         minplus_launches += n
         minplus_row = minplus_row or timing
     minplus_row["launches"] = minplus_launches
     phase_serve(dev)
     phase_conjunctive(dev)
-    _, count_rows = phase_count(dev)
+    _, count_rows = phase_count(dev, rows_base.get("count_mm"))
     kernels = phase_kernel_timing(T, tables, launches, repair, base)
     # the count row at the 16-source batch's shape: every number measured there
     print(json.dumps({"kernels": kernels + [tile_row, minplus_row, count_rows[-1]]}),

@@ -3,13 +3,14 @@ and its fused sibling ``bitmm_or`` (one kernel with a template flag; each
 64-row tile takes a sparse row-gather path or a dense staged path by its
 set-bit count, see the source's header).
 
-Each source under ``csrc/`` (this one, and ``tile_bitmm.cu`` of
-``tile_bitmm.py``) is compiled with ``nvcc`` for ``sm_90a`` into a shared
+Each source under ``csrc/`` (this one, ``tile_bitmm.cu``, ``minplus.cu`` and
+``count_mm.cu``, the last two with their shared ``sparse_rows.cuh``) is
+compiled with ``nvcc`` for ``sm_90a`` into a shared
 library of its own with plain C entry points and loaded with ``ctypes``.
 The build happens at first use, from the sources in this checkout only,
 into ``build/repro_torch/`` at the repository root; the library's file
-name carries the source's name and a hash of the source and the flags, so
-an edit rebuilds it, and two processes or threads may build at once.
+name carries the source's name and a hash of the source, the headers it
+includes and the flags, so an edit rebuilds it, and two processes or threads may build at once.
 Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc`` or a card.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -61,6 +63,14 @@ ENTRIES = {
 }
 
 
+def _sources(source: Path) -> list[Path]:
+    """``source`` and the local headers it includes (``#include "x.cuh"``,
+    beside it), so that an edit of a header rebuilds the library too."""
+    text = source.read_text()
+    return [source] + [source.parent / name for name in
+                       re.findall(r'^#include "([^"]+)"', text, flags=re.M)]
+
+
 def load(source: Path = SOURCE, entries: dict = ENTRIES) -> tuple[ctypes.CDLL, dict]:
     """Compile ``source`` with NVCC_FLAGS into BUILD_DIR (unless a library
     of the same source and flags is there) and load it, its ``entries``
@@ -69,7 +79,8 @@ def load(source: Path = SOURCE, entries: dict = ENTRIES) -> tuple[ctypes.CDLL, d
     and ptxas report (kept beside the library, for a later process that
     finds it built)."""
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in _sources(source))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     path = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     log_path = path.with_suffix(".log")

@@ -1,6 +1,8 @@
 """Bind the count closures' saturating count product of csrc/count_mm.cu:
-a sparse gather over the non-zero lhs entries, the rhs rows gathered in the
-kernel through a slab and a row index (see the source's header).
+the design of the min-plus kernel on the counting semiring (each lhs row
+scanned once per launch for its non-zero entries, then swept across the
+output columns; the rhs rows gathered in the kernel through a slab and a
+row index; see csrc/sparse_rows.cuh).
 
 Built and loaded by ``bitmm.py``'s machinery (``nvcc`` for ``sm_90a`` at
 first use, into ``build/repro_torch/``); nothing here runs at import time.

@@ -1,6 +1,7 @@
-"""Bind the single-path closures' min-plus kernel of csrc/minplus.cu: a
-sparse gather over the finite lhs entries, the rhs rows gathered in the
-kernel through a slab and a row index (see the source's header).
+"""Bind the single-path closures' min-plus kernel of csrc/minplus.cu: each
+lhs row scanned once per launch for its finite entries, listed in shared
+memory, then swept across the output columns, the rhs rows gathered in the
+kernel through a slab and a row index (see csrc/sparse_rows.cuh).
 
 Built and loaded by ``bitmm.py``'s machinery (``nvcc`` for ``sm_90a`` at
 first use, into ``build/repro_torch/``); nothing here runs at import time.
@@ -19,9 +20,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: SOURCE's C entry point: (argument types, result type)
 ENTRIES = {"repro_minplus": ([_P] * 6 + [_I] * 5 + [_P], _I)}
-
-#: output columns and lhs rows one block of the kernel takes
-COL_TILE, ROW_TILE = 1024, 8
 
 
 def _check(lhs, base, slab, row, acc, kernel: str = "minplus_cuda",
@@ -67,8 +65,7 @@ def _check(lhs, base, slab, row, acc, kernel: str = "minplus_cuda",
         raise ValueError(
             f"{kernel}: acc is {tuple(acc.shape)}, the product is {(P, R, C)}"
         )
-    blocks = -(-R // ROW_TILE) * -(-C // COL_TILE)
-    if P > 65535 or max(R, K, C, rows, blocks) > 2**31 - 1:
+    if P > 65535 or max(R, K, C, rows) > 2**31 - 1:
         raise ValueError(
             f"{kernel}: lhs {tuple(lhs.shape)} x base {tuple(base.shape)} is "
             "outside the launch (P <= 65535; counts within int32)"

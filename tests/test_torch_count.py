@@ -3,7 +3,8 @@ bit.
 
 * the saturating arithmetic (``_sat_add``, ``_sat_mul``, ``_count_mm`` at
   every chunk, ``_scatter_sat_add``) on values near 2^16 (their products
-  pass 2^32) and on the SAT sentinel, and the base tensors;
+  pass 2^32) and on the SAT sentinel, an empty contraction, and the base
+  tensors;
 * ``count_closure`` and ``masked_count_closure`` against their JAX
   counterparts on the golden cases (diamond, parallel stages, the
   saturating cycle, sticky saturation downstream, finite counts beside
@@ -43,6 +44,7 @@ from repro_torch.core import matrices as tm
 from repro_torch.core import semantics as ts
 from repro_torch.engine import EngineConfig, Query, QueryEngine
 from repro_torch.engine.plan import CompiledClosureCache, count_engine_name
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from helpers import assert_path_witness, cyk_recognize
 
@@ -164,8 +166,9 @@ def test_sat_add_and_mul_equal_the_reference():
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 64, None])
-@pytest.mark.parametrize("shape", [(3, 7, 13, 9), (2, 5, 1, 4), (1, 9, 70, 11)],
-                         ids=["rectangular", "k=1", "k>chunk"])
+@pytest.mark.parametrize("shape", [(3, 7, 13, 9), (2, 5, 1, 4), (1, 9, 70, 11),
+                                   (1, 3, 7, 1)],
+                         ids=["rectangular", "k=1", "k>chunk", "one column"])
 def test_count_mm_matches_the_reference_at_every_chunk(shape, chunk):
     P, rows, K, cols = shape
     lhs, rhs = _operands(P + K, (P, rows, K)), _operands(rows + cols, (P, K, cols))
@@ -191,6 +194,19 @@ def test_count_mm_ref_index_and_acc_forms():
         assert kref.count_chunk(1, 128, 15872, 15872, dev) == max(1, budget // per_k)
     assert kref.count_chunk(6, 15872, 15872, 15872, "cuda") == 1  # never below 1
     assert kref.count_chunk(1, 2, 3, 7, "cpu") == 7  # small operands: one chunk
+
+
+def test_count_mm_with_an_empty_contraction_is_acc_or_zero():
+    """K = 0 (the reference's ``_count_mm`` takes no empty contraction):
+    the product is 0, and with acc it is acc."""
+    lhs = torch.zeros((2, 3, 0), dtype=torch.int32)
+    rhs = torch.zeros((2, 0, 5), dtype=torch.int32)
+    acc = _t(_operands(8, (2, 3, 5)))
+    assert not ops.count_mm(lhs, rhs).any()
+    assert torch.equal(ops.count_mm(lhs, rhs, acc=acc), acc)
+    base = torch.zeros((3, 4, 5), dtype=torch.int32)
+    assert torch.equal(ops.count_mm(lhs, base, torch.tensor([2, 0]),
+                                    torch.zeros(0, dtype=torch.int64), acc), acc)
 
 
 def test_scatter_sat_add_equals_the_reference():

@@ -319,6 +319,76 @@ def test_minplus_kernel_matches_plain_version(card, finite, P, R, K, C):
         assert torch.equal(got.cpu(), want)
 
 
+#: the cases that reach each branch of the sparse-row design of the min-plus
+#: and count kernels (csrc/sparse_rows.cuh), (P, R, K, C) by name: rows
+#: whose list overflows a warp's 512 entries, K = 0, R off the 8-row block,
+#: C off 4 and the 512-column tile, misaligned operands, acc at its
+#: absorbing value (chip_smoke.py's SPARSE_ROW_CASES)
+SPARSE_ROW_CASES = {
+    "overflow rows among empty ones": (2, 45, 1500, 777),
+    "lists of 512 and 513 entries": (1, 9, 1030, 516),
+    "K = 0": (2, 9, 0, 100),
+    "one row, one column": (1, 1, 7, 1),
+    "misaligned lhs": (3, 13, 50, 1028),
+    "misaligned operands": (2, 11, 51, 1024),
+    "acc absorbing": (2, 17, 300, 600),
+}
+
+
+def _sparse_row_operands(rng, name, values, empty, top):
+    """lhs, rhs (the gathered base), base, slab, row and acc of one
+    SPARSE_ROW_CASES case on the CPU; ``values(shape, share)`` draws ring
+    values taken at ``share`` (``empty`` elsewhere), ``top`` is the
+    absorbing value."""
+    P, R, K, C = SPARSE_ROW_CASES[name]
+    lhs = values((P, R, K), 0.05)
+    lhs[:, ::4] = empty
+    if name == "overflow rows among empty ones":
+        lhs[:] = empty
+        lhs[:, [3, 17, 40]] = values((P, 3, K), 1.0)
+        lhs[:, 5] = values((P, K), 0.5)
+    elif name == "lists of 512 and 513 entries":
+        lhs[:] = empty
+        for i, m in enumerate((512, 513, 1024, K)):
+            lhs[:, i, :m] = values((P, m), 1.0)
+    base = values((P + 1, K + 3, C), 0.5)
+    slab = torch.from_numpy(rng.permutation(P + 1)[:P])
+    row = torch.from_numpy(rng.integers(0, K + 3, size=K))
+    acc = values((P, R, C), 0.3)
+    if name == "acc absorbing":
+        acc[:, ::2] = top
+    rhs = base[slab][:, row].contiguous()
+    if name.startswith("misaligned"):
+        lhs = _misaligned(lhs)
+        if name == "misaligned operands":
+            base, acc = _misaligned(base), _misaligned(acc)
+    return lhs, rhs, base, slab, row, acc
+
+
+def _held_on_card(kernel, plain, launches, card, lhs, rhs, base, slab, row, acc):
+    """``kernel`` (``ops.minplus`` or ``ops.count_mm``) in its plain, index
+    and acc forms on the card, operands at their offsets from a 16-byte
+    boundary, equals ``plain`` on the CPU, one launch a call."""
+    for args, kwargs in (((lhs, rhs), {}), ((lhs, base, slab, row), {}),
+                         ((lhs, base, slab, row), {"acc": acc})):
+        want = plain(*args, **kwargs)
+        before = getattr(ops, launches)
+        got = kernel(*(_on_card(t, card) for t in args),
+                     **{k: _on_card(v, card) for k, v in kwargs.items()})
+        torch.cuda.synchronize()
+        assert getattr(ops, launches) == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", list(SPARSE_ROW_CASES))
+def test_minplus_kernel_matches_plain_version_on_sparse_row_cases(card, name):
+    rng = np.random.default_rng(len(name))
+    inf = float("inf")
+    operands = _sparse_row_operands(
+        rng, name, lambda shape, d: _lengths(rng, shape, d), inf, inf)
+    _held_on_card(ops.minplus, ref.minplus_ref, "minplus_launches", card, *operands)
+
+
 def test_minplus_kernel_rejects_what_it_does_not_take(card):
     lhs = torch.ones((2, 4, 8), device=card)
     base = torch.ones((3, 8, 16), device=card)
@@ -625,6 +695,16 @@ def test_count_mm_kernel_matches_plain_version(card, kind, P, R, K, C):
         torch.cuda.synchronize()
         assert ops.count_mm_launches == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["small", "2^16", "sat"])
+@pytest.mark.parametrize("name", list(SPARSE_ROW_CASES))
+def test_count_mm_kernel_matches_plain_version_on_sparse_row_cases(card, name, kind):
+    rng = np.random.default_rng(len(name) + len(kind))
+    operands = _sparse_row_operands(
+        rng, name, lambda shape, d: _counts(rng, shape, d, kind), 0, -1)
+    _held_on_card(ops.count_mm, ref.count_mm_ref, "count_mm_launches", card,
+                  *operands)
 
 
 def test_count_mm_kernel_rejects_what_it_does_not_take(card):

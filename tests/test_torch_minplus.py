@@ -6,6 +6,7 @@
 * the index form (``slab``, ``row``: repeated and unsorted rows) against
   the reference on an explicit gather of the rhs;
 * the ``acc`` form against ``np.minimum`` of ``acc`` and the reference;
+* an empty contraction (K = 0): inf, or ``acc``;
 * the four single-path closures go through ``ops.minplus`` (a counter
   monkeypatched onto it).
 
@@ -27,12 +28,14 @@ from repro_torch.kernels import ops, ref
 from torch_helpers import case
 
 #: (P, R, K, C, share of finite lhs entries): inf-heavy, fully finite,
-#: rectangular with K and C off every multiple of 4 and 32
+#: rectangular with K and C off every multiple of 4 and 32, one output
+#: column
 SHAPES = {
     "sparse": (3, 40, 64, 96, 0.02),
     "finite": (2, 17, 33, 45, 1.0),
     "rectangular": (2, 7, 130, 257, 0.1),
     "k1": (1, 5, 1, 9, 0.5),
+    "one column": (1, 3, 7, 1, 1.0),
 }
 
 
@@ -102,6 +105,18 @@ def test_minplus_acc_form_is_the_minimum_with_acc(reference, name):
     got = ops.minplus(_t(lhs), _t(rhs), acc=acc_t)
     assert torch.equal(got, _t(np.minimum(acc, reference[name])))
     assert torch.equal(acc_t, _t(acc))  # acc is only read
+
+
+def test_minplus_with_an_empty_contraction_is_acc_or_inf():
+    """K = 0 (the reference's ``_minplus`` takes no empty contraction):
+    the product is inf, and with acc it is acc."""
+    lhs, rhs = torch.zeros((2, 3, 0)), torch.zeros((2, 0, 5))
+    acc = _t(_lengths(np.random.default_rng(0), (2, 3, 5), 0.5))
+    assert torch.isinf(ops.minplus(lhs, rhs)).all()
+    assert torch.equal(ops.minplus(lhs, rhs, acc=acc), acc)
+    base = torch.zeros((3, 4, 5))
+    assert torch.equal(ops.minplus(lhs, base, torch.tensor([2, 0]),
+                                   torch.zeros(0, dtype=torch.int64), acc), acc)
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 64])
