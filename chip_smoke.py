@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline-cu OTHER_REVISION/src/repro_torch/kernels/csrc/bitmm.cu]
+    python3 chip_smoke.py --packing
 
 Builds the port's hand-written CUDA kernels (``bitmm`` and ``bitmm_or``
 from csrc/bitmm.cu, the block-sparse backend's ``tile_contract`` from
@@ -57,15 +58,23 @@ the saturation goldens, bounded all-path enumeration checked by CYK),
 with ``count_mm`` held bit-equal to its plain version on 66 cases (45
 random, 21 of SPARSE_ROW_CASES: acc at SAT among them) and on both real
 states and timed at the all-pairs and the 16-source
-shapes beside its bound, its plain version and a float64 matmul.  Last, the
+shapes beside its bound, its plain version and a float64 matmul.  Then the
 kernels are timed at the main path's shapes (one call, device time, with
 L2 cold, and per path) and over a density sweep that shows where the two
-paths cross.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
+paths cross.  Last, the sharded ``opt`` family in a one-rank NCCL world
+(NCCL takes one rank per card): ``opt_closure`` with ``plan=None`` and on
+the 1 x 1 mesh, word-equal to ``bitpacked_closure`` and to Hellings, and
+``QueryEngine(engine="opt", mesh=...)`` through all pairs, the
+256-source batch, 16 single-path queries, seeded edits and a query that
+shards the repaired state again, with the words each exchange moved per
+iteration.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
 ``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
-``count_mm_timing`` operands (before and after this revision's kernel).  Each phase
-prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+``count_mm_timing`` operands (before and after this revision's kernel).
+``--packing`` runs only the timing of ``pack_bits`` and ``unpack_bits`` on
+the main path's all-pairs state against their 32-step forms and prints no
+result line.  Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero; so does a machine
 without a CUDA device.
 It imports nothing of JAX and nothing of the JAX reference package.
@@ -2863,6 +2872,312 @@ def phase_count(dev, baseline=None) -> tuple[int, list[dict]]:
     return launches, rows
 
 
+# ---------------------------------------------------------------------- #
+# the sharded opt family on a one-rank NCCL world
+# ---------------------------------------------------------------------- #
+
+OPT_BATCH = 256  # single-source relational queries of the opt batch
+
+
+def opt_mesh(dev):
+    """A one-rank NCCL world and its 1 x 1 (data, model) device mesh: every
+    collective of the opt closures runs, trivially (NCCL takes one rank
+    per card, and this run has one card)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def per_iteration(words: dict, calls: dict) -> dict:
+    """Words each exchange sent per closure iteration (``any_world`` runs
+    once an iteration)."""
+    its = max(calls.get("any_world", 0), 1)
+    return {k: v / its for k, v in sorted(words.items())}
+
+
+def phase_opt(dev) -> dict:
+    """The ``opt`` family at full width (pizza x 16, n = 15,872, Query 1) in
+    a one-rank NCCL world: ``opt_closure`` with ``plan=None`` and with the
+    1 x 1 mesh, word-equal to ``bitpacked_closure``'s state and to the
+    shifted Hellings oracle; then ``QueryEngine(engine="opt", mesh=...)``:
+    all pairs (its state word-equal to a bitpacked engine's), the
+    256-source batch, 16 single-path queries in copy 0 (witnesses by CYK),
+    seeded edits in copies 0 and 1 through ``apply_delta`` (pairs against
+    Hellings and the bitpacked engine's repaired state, rows of the other
+    copies bit-identical), then single-path queries in copy 2 that shard
+    the repaired state again.  Prints wall and ``closure.execute`` ms per
+    call, launches, the words each exchange moved per iteration, the
+    placement around the edit and peak memory.  Every relational closure
+    must launch ``bitmm``, the single-path batch ``minplus``.  Returns the
+    phase's launches of ``bitmm``, ``bitmm_or`` and ``minplus``."""
+    from repro_torch.core import closure
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import Graph, paper_table_graph
+    from repro_torch.core.matrices import (
+        ProductionTables, init_matrix, pack_bits, relations_from_matrix,
+    )
+    from repro_torch.delta.repair import placement_of
+    from repro_torch.engine import EngineConfig, Query, QueryEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.shard import plans as shard
+
+    t0 = time.perf_counter()
+    mesh = opt_mesh(dev)
+    plan = shard.MeshPlan.from_mesh(mesh)
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    g = query1_grammar().to_cnf()
+    a0 = g.index_of("S")
+    tables = ProductionTables.from_grammar(g)
+    off = paper_table_graph(BASE_GRAPH).n_nodes
+    graph = paper_table_graph(BASE_GRAPH).repeat(PIZZA_COPIES)
+    oracle = shifted_oracle()
+    total = {"bitmm": 0, "bitmm_or": 0, "minplus": 0}
+
+    def count(launches):
+        for k in total:
+            total[k] += launches[k]
+        return launches
+
+    # 1. the all-pairs closure, without and with the mesh, against the
+    #    bitpacked closure's words and Hellings; each returns the whole
+    #    bool state (the mesh's gathered), timed twice in turns
+    # the state's construction, timed apart: the main path's
+    # closure_bitpacked time holds it and that function's first call
+    T0, init_ms, _ = run_phase(lambda: init_matrix(graph, g, device=dev))
+    plans = {"bitpacked_closure": None, "plan_none": None, "mesh_1x1": plan}
+    want = None
+    closures = {label: {"wall_ms": []} for label in plans}
+    for label in list(plans) + list(plans)[::-1]:
+        p = plans[label]
+
+        def run():
+            shard.reset_exchanges()
+            if label == "bitpacked_closure":
+                return closure.bitpacked_closure(T0, tables), {}
+            out = closure.opt_closure(T0, tables, plan=p)
+            if p is None:
+                return out, {}
+            calls, words = dict(shard.exchange_calls), dict(shard.exchanged)
+            return out.full(), per_iteration(words, calls) | {
+                "iterations": calls.get("any_world", 0)}
+
+        (full, words), ms, launches = run_phase(run)
+        words_of = pack_bits(full)
+        want = words_of if want is None else want
+        check(torch.equal(words_of, want), f"{label} != bitpacked_closure's words")
+        check(relations_from_matrix(full, g, graph.n_nodes)["S"] == oracle,
+              f"{label} != shifted Hellings")
+        check(launches["bitmm"] > 0, f"{label} never launched bitmm")
+        if label != "bitpacked_closure":  # the opt path's launches only
+            count(launches)
+        row = closures[label]
+        row["wall_ms"].append(ms)
+        row.update(bitmm_launches=launches["bitmm"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   **({"exchange_words_per_iteration": words} if words else {}))
+        del full, words_of
+    del T0, want
+    torch.cuda.empty_cache()
+    emit("opt_closure", n=graph.n_nodes, nccl_setup_ms=setup_ms,
+         init_matrix_ms=init_ms,
+         mesh={"data": plan.data_size, "model": plan.model_size}, **closures)
+
+    def engine_of(name, gr=graph, m=mesh):
+        return QueryEngine(
+            gr, config=EngineConfig(engine=name, device=str(dev), mesh=m),
+            metrics=MetricsRegistry(), tracer=Tracer(iteration_events=False),
+        )
+
+    def call(eng, fn):
+        """One engine call: wall and closure ms, launches, exchanges."""
+        first = len(eng.tracer.spans)
+        shard.reset_exchanges()
+        out, ms, launches = run_phase(fn)
+        count(launches)
+        return out, {
+            "wall_ms": ms,
+            "closure_execute_ms": span_ms(eng.tracer, first, "closure.execute"),
+            "host_copy_ms": span_ms(eng.tracer, first, "closure.host_copy"),
+            "launches": {k: launches[k] for k in total},
+            "iterations": shard.exchange_calls.get("any_world", 0),
+            "exchange_words": dict(shard.exchanged),
+            "exchange_words_per_iteration": per_iteration(
+                shard.exchanged, shard.exchange_calls),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        }
+
+    report = {}
+    # 2. the 256-source batch on its own engine
+    eng = engine_of("opt")
+    sources = np.random.default_rng(0).choice(graph.n_nodes, size=OPT_BATCH,
+                                              replace=False).tolist()
+    outs, report["batch"] = call(eng, lambda: eng.query_batch(
+        [Query(g, "S", sources=(int(s),)) for s in sources]))
+    for s, r in zip(sources, outs):
+        check(r.pairs == {p for p in oracle if p[0] == s}, f"opt batch: source {s}")
+    check(report["batch"]["launches"]["bitmm"] > 0, "the opt batch never launched bitmm")
+    report["batch"]["route"] = outs[0].stats.planner["label"]
+    del eng, outs
+
+    # 3. all pairs, single path, an edit, a query that shards again
+    eng = engine_of("opt")
+    res, report["allpairs"] = call(eng, lambda: eng.query(Query(g, "S")))
+    check(res.pairs == oracle, "opt all pairs != shifted Hellings")
+    check(report["allpairs"]["launches"]["bitmm"] > 0, "opt all pairs never launched bitmm")
+    (st,) = eng._states.values()
+    report["allpairs"]["state"] = type(st.T).__name__
+    bp = engine_of("bitpacked", m=None)
+    bp.query(Query(g, "S"))
+    (bst,) = bp._states.values()
+    check(torch.equal(pack_bits(st.T.full()), pack_bits(bst.T)),
+          "the opt engine's state != the bitpacked engine's")
+    check(np.array_equal(st.T_host, bst.T_host), "the opt host mirror != bitpacked's")
+
+    picks = np.random.default_rng(3).choice(off, size=SP_SOURCES, replace=False)
+    edges = set(graph.edges)
+    sp_oracle = _copy_oracle(graph, g, 0, off)
+    outs, report["single_path"] = call(eng, lambda: eng.query_batch(
+        [Query(g, "S", sources=(int(s),), semantics="single_path") for s in picks]))
+    (st,) = eng._states.values()
+    n_paths = 0
+    for s, r in zip(picks, outs):
+        check(r.pairs == {p for p in sp_oracle if p[0] == s}, f"opt single path: {s}")
+        for (i, j), path in r.paths.items():
+            check_witness(edges, g, i, j, path, int(st.sp_L_host[a0, i, j]),
+                          f"opt single path ({i}, {j})")
+            n_paths += 1
+    check(report["single_path"]["launches"]["minplus"] > 0,
+          "the opt single-path batch never launched minplus")
+    report["single_path"]["witnesses"] = n_paths
+    check(state_equals_mirror(st.sp_L.full(), st.sp_L_host),
+          "the opt single-path mirror != its sharded state")
+
+    frozen_rows = np.arange(2 * off, PIZZA_COPIES * off)
+    keep_T = st.T_host[:, frozen_rows, :].copy()
+    keep_L = st.sp_L_host[:, frozen_rows, :].copy()
+    placement = {"before": {"relational": st.placement, "single_path": st.sp_placement,
+                            "state": type(st.T).__name__}}
+    delete, insert = _seeded_edits(np.random.default_rng(7), graph, g, off)
+    dst, report["apply_delta"] = call(
+        eng, lambda: eng.apply_delta(insert=insert, delete=delete))
+    (st,) = eng._states.values()
+    placement["after_edit"] = {"relational": st.placement,
+                               "single_path": st.sp_placement,
+                               "state": type(st.T).__name__}
+    report["apply_delta"].update(dst.as_dict())
+    check(dst.rows_repaired > 0 and dst.rows_evicted > 0, f"the opt edit: {dst}")
+    bp.apply_delta(insert=insert, delete=delete)
+    (bst,) = bp._states.values()
+    M = st.mask
+    check(np.array_equal(st.T_host[:, M, :], bst.T_host[:, M, :]),
+          "the opt engine's repaired rows != the bitpacked engine's")
+    check(np.array_equal(st.T_host[:, frozen_rows, :], keep_T),
+          "the opt edit changed rows of the other copies")
+    check(np.array_equal(st.sp_L_host[:, frozen_rows, :], keep_L),
+          "the opt edit changed length rows of the other copies")
+    untouched = {(i, j) for i, j in oracle if i >= 2 * off}
+    want_pairs = untouched | _copy_oracle(graph, g, 0, off) | _copy_oracle(graph, g, 1, off)
+    res, report["allpairs_after_edit"] = call(eng, lambda: eng.query(Query(g, "S")))
+    check(res.pairs == want_pairs, "opt all pairs after the edit != Hellings")
+    del bp, bst, keep_T, keep_L
+
+    # single-path queries in copy 2 need new rows: the closure shards the
+    # repaired state again
+    again = [int(s) + 2 * off for s in picks]
+    edges = set(graph.edges)
+    outs, report["single_path_after_edit"] = call(eng, lambda: eng.query_batch(
+        [Query(g, "S", sources=(s,), semantics="single_path") for s in again]))
+    (st,) = eng._states.values()
+    for s, r in zip(again, outs):
+        check(r.pairs == {p for p in want_pairs if p[0] == s},
+              f"opt single path after the edit: {s}")
+        for (i, j), path in r.paths.items():
+            check_witness(edges, g, i, j, path, int(st.sp_L_host[a0, i, j]),
+                          f"opt single path after the edit ({i}, {j})")
+    placement["after_query"] = {"relational": st.placement,
+                                "single_path": st.sp_placement,
+                                "sp_state": type(st.sp_L).__name__,
+                                "placement_of": placement_of(st.sp_L)}
+    check(placement["after_query"]["sp_state"] == "ShardedState",
+          "the query after the edit did not shard the length state again")
+    emit("opt_engine", n=graph.n_nodes, calls=report, placement=placement,
+         launches=total, plan_keys=sorted(
+             f"{k.semantics}:{k.engine}:{k.row_capacity}:{'repair' if k.repair else ''}"
+             f":{k.mesh}" for k in eng.plans._exe))
+    del eng, st, outs, res
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return total
+
+
+HBM_BYTES_PER_MS = 3.35e9  # the H100's published 3.35 TB/s
+
+
+def pack_loop(T: torch.Tensor) -> torch.Tensor:
+    """``pack_bits`` as 32 strided steps, one bit position each: the form
+    the timing of ``--packing`` holds the library's blocked form against."""
+    w = -(-T.shape[-1] // 32)
+    T = torch.nn.functional.pad(T, (0, w * 32 - T.shape[-1]))
+    out = torch.zeros((*T.shape[:-1], w), dtype=torch.int32, device=T.device)
+    for b in range(32):
+        out |= T[..., b::32].to(torch.int32) << b
+    return out
+
+
+def unpack_loop(Tp: torch.Tensor, n: int) -> torch.Tensor:
+    """``unpack_bits`` as 32 steps, one bit position each."""
+    w = Tp.shape[-1]
+    out = torch.empty((*Tp.shape[:-1], w, 32), dtype=torch.bool, device=Tp.device)
+    for b in range(32):
+        out[..., b] = ((Tp >> b) & 1).bool()
+    return out.reshape(*Tp.shape[:-1], w * 32)[..., :n]
+
+
+def phase_packing(dev) -> None:
+    """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
+    (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
+    their 32-step forms: equal results, then device and event times in
+    turns (library, loop, loop, library), peak memory above the operands,
+    and the byte bound (the bool state read or written once)."""
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import paper_table_graph
+    from repro_torch.core.matrices import init_matrix, pack_bits, unpack_bits
+
+    g = query1_grammar().to_cnf()
+    graph = paper_table_graph(BASE_GRAPH).repeat(PIZZA_COPIES)
+    T = init_matrix(graph, g, device=dev)
+    n = T.shape[-1]
+    P = pack_bits(T)
+    check(torch.equal(P, pack_loop(T)), "pack_bits != its 32-step form")
+    check(torch.equal(unpack_bits(P, n), T), "unpack_bits(pack_bits(T)) != T")
+    check(torch.equal(unpack_loop(P, n), T), "the 32-step unpack != T")
+    forms = {
+        "pack": {"library": lambda: pack_bits(T), "loop": lambda: pack_loop(T)},
+        "unpack": {"library": lambda: unpack_bits(P, n),
+                   "loop": lambda: unpack_loop(P, n)},
+    }
+    rows = {}
+    for op, fns in forms.items():
+        row = rows[op] = {"bound_ms": (T.numel() + P.numel() * 4) / HBM_BYTES_PER_MS}
+        for form in ("library", "loop", "loop", "library"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            entry = row.setdefault(form, {"device_ms": [], "event_ms": []})
+            entry["device_ms"].append(device_ms(fns[form], reps=10))
+            entry["event_ms"].append(time_ms(fns[form], reps=10))
+            entry["peak_extra_bytes"] = torch.cuda.max_memory_allocated() - held
+    emit("packing", shape=list(T.shape), bool_bytes=T.numel(),
+         packed_bytes=P.numel() * 4, **rows)
+
+
 def load_baselines(bitmm_cu: Path):
     """Build another revision's kernels: its ``bitmm.cu`` and, where they
     lie beside it, its ``minplus.cu`` and ``count_mm.cu``.  Returns the
@@ -2893,6 +3208,10 @@ def main() -> None:
              "(device time) on the kernel_timing rows' operands, and the "
              "minplus.cu and count_mm.cu beside it on the minplus_timing and "
              "count_mm_timing rows' operands")
+    parser.add_argument(
+        "--packing", action="store_true",
+        help="only time pack_bits and unpack_bits on the main path's state "
+             "against their 32-step forms (no build, no result line)")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails here outside a checkout)
@@ -2900,6 +3219,9 @@ def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.packing:
+        phase_packing(dev)
+        return
     phase_build()
     base, rows_base = None, {}
     if args.baseline_cu is not None:
@@ -2929,6 +3251,13 @@ def main() -> None:
     phase_conjunctive(dev)
     _, count_rows = phase_count(dev, rows_base.get("count_mm"))
     kernels = phase_kernel_timing(T, tables, launches, repair, base)
+    del T
+    torch.cuda.empty_cache()
+    opt = phase_opt(dev)
+    # launches on the main paths: the earlier phases' and the opt phase's
+    kernels[0]["launches"] += opt["bitmm"]
+    kernels[1]["launches"] += opt["bitmm_or"]
+    minplus_row["launches"] += opt["minplus"]
     # the count row at the 16-source batch's shape: every number measured there
     print(json.dumps({"kernels": kernels + [tile_row, minplus_row, count_rows[-1]]}),
           flush=True)

@@ -15,9 +15,16 @@ Engines
   bitpacked_closure  int32 AND/OR words through ``kernels.ops.bitmm`` (the
                      hand-written CUDA kernel on the card, its plain torch
                      version for CPU tensors).
-  masked_*           source-restricted variants of the three: a row mask M
-                     seeded with the requested sources, at most R active rows
-                     per iteration, ``(T, M, overflowed)`` returned.
+  opt_closure        the packed-exchange closure of the ``opt`` family: the
+                     packed state sharded over a device mesh
+                     (``repro_torch.shard.plans.MeshPlan``), one row copy
+                     and one column copy exchanged per iteration, the local
+                     product through ``kernels.ops.bitmm``; ``plan=None`` is
+                     the same math on one device.
+  masked_*           source-restricted variants of the three, and of opt: a
+                     row mask M seeded with the requested sources, at most R
+                     active rows per iteration, ``(T, M, overflowed)``
+                     returned.
   masked_*repair*    delta repair: masked variants that take a frozen-row
                      mask (rows trusted exact, contracted against but never
                      written); the packed one runs its step through
@@ -37,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.shard.plans import LocalPlan, ShardedState
 
 from .matrices import ProductionTables, pack_bits, unpack_bits
 
@@ -191,6 +199,15 @@ def _all_rows(T: torch.Tensor):
     return T, torch.ones((n,), dtype=torch.bool, device=T.device), False
 
 
+def _reach(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) bool: the columns set in any of the packed ``rows`` (N, R, w):
+    their words ORed over the nonterminals, then any() over the rows."""
+    words = rows[0].clone()
+    for a in range(1, rows.shape[0]):
+        words |= rows[a]
+    return unpack_bits(words, n).any(dim=0)
+
+
 def masked_closure(
     T: torch.Tensor,
     tables: ProductionTables,
@@ -314,12 +331,8 @@ def masked_bitpacked_closure(
         upd = old | new_r
         changed_w = upd != old  # changed words (packed growth unit)
         Tp[:, vidx, :] = upd
-        # packed columns reached from active rows: OR over the nonterminal
-        # axis, then any() over the unpacked rows
-        reach = rows[0].clone()
-        for a in range(1, rows.shape[0]):
-            reach |= rows[a]
-        M_next = M | unpack_bits(reach, n).any(dim=0)
+        # packed columns reached from active rows
+        M_next = M | _reach(rows, n)
         overflow = int(M_next.sum()) > R
         grew = bool(changed_w.any()) or bool((M_next & ~M).any())
         if iter_hook is not None:
@@ -327,6 +340,154 @@ def masked_bitpacked_closure(
         M = M_next
         it += 1
     return unpack_bits(Tp, n), M, overflow
+
+
+# ---------------------------------------------------------------------- #
+# The opt family: packed-exchange closures over a device mesh.
+#
+# The persistent state stays packed (int32 words, N x n x w) and is sharded
+# over (rows, words) by a MeshPlan; each iteration exchanges ONE row copy
+# (the rank's rows, every word: all-gathered over ``model``) and ONE column
+# copy (every row, the rank's words: all-gathered over the row axis), and
+# the rank's product ``bitmm(row_copy[B], col_copy[C])`` is exactly its own
+# block of the state.  The reference unpacks both copies to int8 for the
+# TPU's int8 MXU; here the hand-written bitmm reads the packed words the
+# exchange moved.  Every rank reads one "grew" flag per iteration from a
+# MAX all-reduce, so all ranks loop alike and issue the same collectives.
+# With ``plan`` a MeshPlan the closures return a ShardedState (the state
+# stays where it lives; ``repro_torch.delta.repair.localize_state`` gathers
+# it); with ``plan=None`` they run LocalPlan, the same math on one device
+# with no collective, and return tensors.
+# ---------------------------------------------------------------------- #
+
+
+def _shard_state(T, lay, packed: bool) -> torch.Tensor:
+    """This rank's block of the persistent state: packed words of a Boolean
+    ``T`` (``packed``), or f32 lengths; ``T`` a tensor, or a ShardedState of
+    the same layout (its block is copied, else it is gathered first)."""
+    if isinstance(T, ShardedState):
+        if T.packed == packed and T.plan.same_layout(lay):
+            return T.local.clone()
+        T = T.full()
+    return lay.shard(pack_bits(T) if packed else T, 0 if packed else float("inf"))
+
+
+def _unshard(local, n, plan, packed: bool):
+    if plan is None:
+        return unpack_bits(local, n) if packed else local
+    return ShardedState(local, n, plan, packed)
+
+
+def _grew_anywhere(lay, changed: torch.Tensor) -> bool:
+    return bool(lay.any_world(changed.to(torch.int32).reshape(1)).item())
+
+
+def _opt_step(Tp, tables, b_idx, c_idx, n: int, lay):
+    """One iteration on this rank's block: ``(Tp | new, changed here)``."""
+    row_copy = lay.row_copy(Tp, -(-n // 32))  # (N, rows_loc, w)
+    col_copy = lay.col_copy(Tp, n)  # (N, n, w_loc)
+    new = _scatter_or(kops.bitmm(row_copy[b_idx], col_copy[c_idx]), tables)
+    Tp_next = Tp | new
+    return Tp_next, (Tp_next != Tp).any()
+
+
+def opt_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    max_iters: int | None = None,
+    plan=None,
+):
+    """T^cf with one packed exchange per iteration and the local product on
+    ``kernels.ops.bitmm``.  ``T`` (N, n, n) bool (or a ShardedState of a
+    Boolean state); returns the closure, a ShardedState under a plan."""
+    if tables.n_prods == 0:
+        return T
+    lay = plan if plan is not None else LocalPlan()
+    b_idx, c_idx = tables.index_tensors(T.device)
+    n = T.shape[-1]
+    limit = _iter_limit(T, max_iters)
+    Tp = _shard_state(T, lay, packed=True)  # (N, rows_loc, w_loc)
+    it = 0
+    while it < limit:
+        Tp, changed = _opt_step(Tp, tables, b_idx, c_idx, n, lay)
+        it += 1
+        if not _grew_anywhere(lay, changed):
+            break
+    return _unshard(Tp, n, plan, packed=True)
+
+
+def opt_step(T_packed, tables: ProductionTables, n: int, plan=None):
+    """One :func:`opt_closure` iteration on the packed state ``T_packed``
+    (N, n, w) int32, or a ShardedState of packed words under ``plan``
+    (the roofline unit); returns the same kind."""
+    lay = plan if plan is not None else LocalPlan()
+    b_idx, c_idx = tables.index_tensors(T_packed.device)
+    if isinstance(T_packed, ShardedState):
+        Tp = T_packed.local
+    else:
+        Tp = lay.shard(T_packed, 0)
+    Tp, _ = _opt_step(Tp, tables, b_idx, c_idx, n, lay)
+    return Tp if plan is None else ShardedState(Tp, n, plan, packed=True)
+
+
+def masked_opt_closure(
+    T: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    plan=None,
+):
+    """Source-restricted closure on the packed-exchange path: the sharded
+    sibling of :func:`masked_bitpacked_closure`.
+
+    Per iteration the compacted active rows are gathered from their owners
+    (each rank keeps its words), each row rank takes its share of them and
+    all-gathers their words over ``model`` (the row copy), the column copy
+    of the whole state is all-gathered over the row axis, and the rank's
+    ``bitmm`` product is its lanes x words of the new rows, which go back
+    to their owners (``MeshPlan.scatter_rows``).  ``M`` grows by the
+    columns the gathered rows reach (their words ORed over the nonterminals
+    and lanes, unpacked); reach and the grew flag travel in one MAX
+    all-reduce.  Returns ``(T, M, overflowed)`` as the other masked
+    closures, ``T`` a ShardedState under a plan; rows already at their
+    fixpoint come back bit-identical on every mesh shape.  No
+    ``iter_hook``: the reference's opt closures have none."""
+    if tables.n_prods == 0:
+        return _all_rows(T)
+    R, b_idx, c_idx, limit = _masked_init(T, tables, row_capacity, max_iters)
+    lay = plan if plan is not None else LocalPlan()
+    n = T.shape[-1]
+    w = -(-n // 32)
+    Tp = _shard_state(T, lay, packed=True)  # (N, rows_loc, w_loc)
+    w_loc = Tp.shape[-1]
+    c0 = lay.model_rank * w_loc * 32  # first column of this rank's words
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        if cnt == 0:
+            break
+        vidx = idx[:cnt]
+        kp = lay.lanes_per(cnt)
+        rows = lay.gather_rows(Tp, vidx, kp * lay.row_size, n)  # (N, K, w_loc)
+        share = rows[:, lay.row_rank * kp:(lay.row_rank + 1) * kp]
+        row_copy = lay.row_copy(share, w)  # (N, kp, w): rows local
+        col_copy = lay.col_copy(Tp, n)  # (N, n, w_loc): words local
+        new = _scatter_or(kops.bitmm(row_copy[b_idx], col_copy[c_idx]), tables)
+        changed = lay.scatter_rows(Tp, vidx, share | new, n)
+        # columns reached from active rows, and the grew flag: one MAX
+        flags = torch.zeros(lay.model_size * w_loc * 32 + 1, dtype=torch.int32,
+                            device=Tp.device)
+        flags[c0:c0 + w_loc * 32] = _reach(rows, w_loc * 32)
+        flags[-1] = changed
+        flags = lay.any_world(flags)
+        M_next = M | flags[:n].bool()
+        overflow = int(M_next.sum()) > R
+        grew = bool(flags[-1]) or bool((M_next & ~M).any())
+        M = M_next
+        it += 1
+    return _unshard(Tp, n, plan, packed=True), M, overflow
 
 
 # ---------------------------------------------------------------------- #
@@ -458,10 +619,7 @@ def masked_bitpacked_repair_closure(
         vidx = idx[:cnt]  # never frozen: M excludes frozen rows
         changed_w = upd != rows[heads, :cnt]
         Tp[heads[:, None], vidx[None, :]] = upd
-        reach = rows[0].clone()
-        for a in range(1, rows.shape[0]):
-            reach |= rows[a]
-        M_next = M | (unpack_bits(reach, n).any(dim=0) & ~frozen_mask)
+        M_next = M | (_reach(rows, n) & ~frozen_mask)
         overflow = int(M_next.sum()) > R
         grew = bool(changed_w.any()) or bool((M_next & ~M).any())
         if iter_hook is not None:

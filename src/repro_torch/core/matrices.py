@@ -120,10 +120,20 @@ def init_matrix_rows(
 
 # ---------------------------------------------------------------------- #
 # Bitpacked layout: pack the trailing (column) axis, 32 columns per word.
-# Both directions loop over the 32 bit positions so the temporaries stay
-# word-sized: a (…, w, 32) int32 expansion of the full-size state would be
-# 32x the packed state.
+# Both directions take all 32 bits of a block of rows at once and bound
+# the block, so the temporaries stay small: a (…, w, 32) int32 expansion
+# of the full-size state would be 32x the packed state.
 # ---------------------------------------------------------------------- #
+
+
+#: int32 words a pack or unpack expands at once (32 words per packed
+#: word): 64 MB
+PACK_BLOCK_WORDS = 1 << 24
+
+
+def _row_blocks(rows: int, w: int) -> range:
+    """Starts of the row blocks of a ``(rows, w)`` word view."""
+    return range(0, rows, max(1, PACK_BLOCK_WORDS // (32 * max(w, 1))))
 
 
 def pack_bits(T: torch.Tensor) -> torch.Tensor:
@@ -136,9 +146,16 @@ def pack_bits(T: torch.Tensor) -> torch.Tensor:
     pad = w * 32 - n
     if pad:
         T = torch.cat([T, T.new_zeros((*T.shape[:-1], pad))], dim=-1)
-    out = torch.zeros((*T.shape[:-1], w), dtype=torch.int32, device=T.device)
-    for b in range(32):
-        out |= T[..., b::32].to(torch.int32) << b
+    out = torch.empty((*T.shape[:-1], w), dtype=torch.int32, device=T.device)
+    # bits 0-30 of a word sum without overflow; bit 31 is ORed in as the
+    # sign bit
+    shifts = torch.arange(31, dtype=torch.int32, device=T.device)
+    bits, words = T.reshape(-1, w, 32), out.view(-1, w)
+    blocks = _row_blocks(bits.shape[0], w)
+    for r in blocks:
+        blk = bits[r:r + blocks.step].to(torch.int32)
+        torch.bitwise_or((blk[..., :31] << shifts).sum(-1, dtype=torch.int32),
+                         blk[..., 31] << 31, out=words[r:r + blocks.step])
     return out
 
 
@@ -146,8 +163,12 @@ def unpack_bits(Tp: torch.Tensor, n: int) -> torch.Tensor:
     """(…, w) int32 -> (…, n) bool."""
     w = Tp.shape[-1]
     out = torch.empty((*Tp.shape[:-1], w, 32), dtype=torch.bool, device=Tp.device)
-    for b in range(32):
-        out[..., b] = ((Tp >> b) & 1).bool()
+    shifts = torch.arange(32, dtype=torch.int32, device=Tp.device)
+    words, bits = Tp.reshape(-1, w), out.view(-1, w, 32)
+    blocks = _row_blocks(words.shape[0], w)
+    for r in blocks:
+        torch.ne((words[r:r + blocks.step, :, None] >> shifts) & 1, 0,
+                 out=bits[r:r + blocks.step])
     return out.reshape(*Tp.shape[:-1], w * 32)[..., :n]
 
 

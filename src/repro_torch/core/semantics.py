@@ -315,6 +315,70 @@ def masked_single_path_repair_closure(
     return L, M, overflow
 
 
+def masked_opt_single_path_closure(
+    L: torch.Tensor,
+    tables: ProductionTables,
+    src_mask: torch.Tensor,
+    row_capacity: int = 128,
+    max_iters: int | None = None,
+    plan=None,
+):
+    """Source-restricted single-path closure of the ``opt`` family:
+    :func:`masked_single_path_closure` with the state sharded over the
+    mesh (``repro_torch.shard.plans.MeshPlan``; rows over the row axis,
+    columns over ``model``).
+
+    Lengths are f32, so there is no packed layout to exchange; per
+    iteration the compacted active block is gathered once: its rows from
+    their owners (each rank keeping its columns: the column copy, R
+    replicated), then every column all-gathered over ``model`` (the
+    replicated ``(N, R, n)`` block).  The row copy is the rank's lanes of
+    that block; the lhs gathers its columns by ``idx``.  The product is
+    ``kernels.ops.minplus`` of the lhs against the column copy (slab =
+    ``c_idx``), the rank's lanes x columns of the candidates, and the
+    updated rows go back to their owners.  Freeze-on-first-discovery is
+    kept verbatim (candidates land only where ``isfinite`` just flipped),
+    so finite entries never move, on any mesh shape.  ``plan=None`` is
+    the same math on one device.  Returns ``(L, M, overflowed)``, ``L`` a
+    ShardedState under a plan."""
+    from repro_torch.shard.plans import LocalPlan
+
+    if tables.n_prods == 0:
+        return _all_rows(L)
+    R, b_idx, c_idx, limit = _masked_init(L, tables, row_capacity, max_iters)
+    lay = plan if plan is not None else LocalPlan()
+    n = L.shape[-1]
+    Ll = _closure._shard_state(L, lay, packed=False)  # (N, rows_loc, cols_loc)
+    M = src_mask.clone()
+    grew, overflow, it = True, False, 0
+    while grew and not overflow and it < limit:
+        idx, cnt = _active_rows(M, R)
+        if cnt == 0:
+            break
+        vidx = idx[:cnt]
+        kp = lay.lanes_per(cnt)
+        lo = lay.row_rank * kp
+        col_copy = lay.gather_rows(Ll, vidx, kp * lay.row_size, n)  # (N, K, c)
+        col_copy[:, cnt:] = INF
+        block = lay.row_copy(col_copy, n)  # (N, K, n): replicated
+        # compact the contraction axis too: only rows in M can contribute
+        lhs = block[:, lo:lo + kp][:, :, vidx][b_idx]  # (P, kp, cnt)
+        cand = _kops.minplus(
+            lhs, col_copy, c_idx, torch.arange(cnt, device=lhs.device)
+        )  # (P, kp, c): this rank's lanes and columns
+        cand_a = _scatter_min(cand, tables)
+        old = col_copy[:, lo:lo + kp]
+        newly = torch.isfinite(cand_a) & ~torch.isfinite(old)
+        changed = lay.scatter_rows(Ll, vidx, torch.where(newly, cand_a, old), n)
+        reach = torch.isfinite(block[:, :cnt]).any(dim=1).any(dim=0)
+        M_next = M | reach
+        overflow = int(M_next.sum()) > R
+        grew = _closure._grew_anywhere(lay, changed) or bool((M_next & ~M).any())
+        M = M_next
+        it += 1
+    return _closure._unshard(Ll, n, plan, packed=False), M, overflow
+
+
 # ---------------------------------------------------------------------- #
 # Source-restricted (masked) conjunctive closures — the engine workload for
 # ``semantics="conjunctive"``.
@@ -903,6 +967,7 @@ def closure_engines() -> dict:
         "dense": _closure.dense_closure,
         "frontier": _closure.frontier_closure,
         "bitpacked": _closure.bitpacked_closure,
+        "opt": _closure.opt_closure,
         "masked": _masked_allpairs,
     }
 

@@ -39,6 +39,11 @@ recomputed entries (a subset of the exact closure) into an already-exact
 frozen row is a no-op.  Every row the block-sparse repair may write is
 under the mask it returns, so the rows-only copy below stays complete.
 
+A state the ``opt`` engine sharded over a device mesh is gathered onto
+every rank first (:func:`localize_state`): repair is sized by an edit's
+blast radius, not by the graph, so it runs the one-device path, on every
+rank alike, and the next sharded query shards the state again.
+
 The port keeps the cached state on its device and a host copy beside it.
 The reference re-reads the whole state after a repair; here only the rows
 the repair may have written — the touched rows and the rows under the
@@ -54,12 +59,33 @@ import torch
 
 from repro_torch.core.graph import EdgeDelta, Graph
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.shard.plans import ShardedState
+
+
+def localize_state(state_dev):
+    """A mesh-sharded cached state as one tensor on this rank's device.
+
+    The ``opt`` backend caches states sharded over its mesh
+    (:class:`~repro_torch.shard.plans.ShardedState`); repair and the
+    one-device closures take the whole state, so a sharded state is
+    all-gathered here onto every rank (the SPMD form of the reference's
+    pull through the host); every rank must call this alike.  A state that
+    is already a tensor passes through untouched."""
+    if isinstance(state_dev, ShardedState):
+        return state_dev.full()
+    return state_dev
 
 
 def placement_of(state_dev) -> str:
-    """Placement tag of a cached closure state.  The port has no sharded
-    states yet (that comes with the ``opt`` family), so every state that
-    exists is ``"local"``."""
+    """Placement tag of a cached closure state: ``"sharded"`` when it is
+    spread over more than one rank of a mesh, ``"local"`` otherwise (a
+    tensor, or a state sharded over a one-rank mesh).
+
+    The engine records this after every closure and every repair (which
+    localizes sharded states): it is a planner feature — consuming a state
+    away from where it lives costs a move, which the cost model charges."""
+    if isinstance(state_dev, ShardedState) and state_dev.plan.world > 1:
+        return "sharded"
     return "local"
 
 
@@ -192,6 +218,7 @@ def _repair_rows(
     merges with its base row through ``compose_patch(old, base, ev)``, with
     ``ev`` the evicted-lane mask broadcastable over the patch.
 
+    0. a sharded state is gathered into one tensor (:func:`localize_state`).
     1. base surgery on just the touched rows: grow inserted sources' base
        rows, reset evicted rows to the new base.  The patch is composed on
        the host and written into the device state in place (the engine owns
@@ -205,6 +232,7 @@ def _repair_rows(
     stats = DeltaStats()
     mask = np.array(mask, copy=True)
     written = np.zeros(mask.shape, dtype=bool)
+    state_dev = localize_state(state_dev)  # opt mesh states repair locally
 
     touched = plan.evict | plan.ins_sources
     if touched.any():

@@ -4,13 +4,17 @@
 default — routes every closure call through the cost-based planner
 (``repro_torch.engine.planner``); naming a backend string pins it (a
 pinned engine never falls back and always uses the capacity ladder).
-``device`` replaces the reference's ``mesh``: the engine keeps its states
-and runs its closures there.
+``device`` says where the engine keeps its states and runs its closures;
+``mesh``, as in the reference, shards the ``opt`` closures over a
+``torch.distributed`` device mesh of that device type.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Any
+
+from repro_torch.shard.plans import check_mesh
 
 from .plan import MASKED_ENGINES
 from .planner import PlannerProfile
@@ -26,11 +30,24 @@ class EngineConfig:
 
     ``engine``
         ``"auto"`` (default): the planner picks the cheapest closure per
-        call.  ``"dense"`` / ``"frontier"`` / ``"bitpacked"`` /
-        ``"blocksparse"`` pins it.
+        call.  ``"dense"`` / ``"frontier"`` / ``"bitpacked"`` / ``"opt"``
+        / ``"blocksparse"`` pins it.
     ``device``
         Where states live and closures run: ``"cuda"`` (default; raises on
-        a machine without a card) or ``"cpu"``.
+        a machine without a card) or ``"cpu"``.  With a ``mesh``, each
+        rank's device is its current one (``cuda:<local rank>``).
+    ``mesh``
+        A ``torch.distributed`` ``DeviceMesh`` with axes ``data`` and
+        ``model`` (and an optional leading ``pod``) for sharded
+        execution.  Requires ``engine`` to be ``"opt"`` (the only sharded
+        backend) or ``"auto"`` (the planner may choose the sharded closure
+        when the mesh has more than one rank), a live process group, and
+        the mesh's device type equal to ``device``'s: ``cuda`` runs NCCL,
+        ``cpu`` gloo.  Every rank builds its engine and makes the same
+        calls in the same order (SPMD).  The first query of a grammar
+        checks that every rank numbers it the same way (``to_cnf`` walks
+        sets, so two processes with other hash seeds may not) and raises
+        on every rank if not.
     ``row_capacity``
         Floor of the masked-closure capacity bucket ladder.  For the
         ``blocksparse`` backend the same ladder counts occupied *blocks*.
@@ -46,6 +63,7 @@ class EngineConfig:
 
     engine: str = "auto"
     device: str = "cuda"
+    mesh: Any = None
     row_capacity: int = 128
     tile: int = 128
     profile: PlannerProfile | str | Path | None = None
@@ -56,6 +74,13 @@ class EngineConfig:
                 f"unknown engine {self.engine!r}; pick one of "
                 f"{sorted(ENGINE_CHOICES)}"
             )
+        if self.mesh is not None:
+            if self.engine not in ("opt", "auto"):
+                raise ValueError(
+                    "mesh sharding is only supported by the 'opt' engine (or "
+                    f"engine='auto'), not {self.engine!r}"
+                )
+            check_mesh(self.mesh, self.device)
         if self.row_capacity < 1:
             raise ValueError("row_capacity must be >= 1")
         if self.tile < 32 or self.tile % 32:

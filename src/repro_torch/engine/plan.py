@@ -18,13 +18,16 @@ Invariants
   :class:`PlanKey` and of nothing else; it never depends on graph data, so
   it survives every graph edit and may be shared across engines serving
   different graphs of the same padded size.  The key keeps every field of
-  the reference's ``PlanKey``; the port builds single-device keys
-  (``mesh=()``): relational and single-path, masked or repair
+  the reference's ``PlanKey``.  ``mesh`` is the device-mesh identity
+  (:func:`mesh_key_of`) of a sharded ``opt`` key, ``()`` otherwise; the
+  concrete mesh is given at build time.  The port builds relational and
+  single-path keys, masked or repair
   (``repair=True``, with ``ctx_capacity`` the contraction-context bucket
   of the dense/frontier and every single-path repair, 0 for the packed
   and block-sparse ones), and masked conjunctive and count keys (their
   ``tables`` a ``ConjunctiveTables`` or ``ProductionTables``; neither
-  has a repair variant).  ``tile`` is the bit-tile edge of a
+  has a repair variant; neither, nor a repair key, carries a mesh).
+  ``tile`` is the bit-tile edge of a
   block-sparse key (whose ``row_capacity`` then counts occupied blocks),
   0 for every other backend.
 * **Key aliasing is semantic.**  :func:`sp_engine_name`,
@@ -43,19 +46,25 @@ from repro_torch.core import closure as _closure
 from repro_torch.core import semantics as _semantics
 from repro_torch.core.matrices import ProductionTables
 from repro_torch.obs.trace import emit_iteration
+from repro_torch.shard.plans import MeshPlan, mesh_key_of
 
 #: masked (source-restricted) closure per backend — the serving fast path.
-#: ``blocksparse`` is the tiled occupied-block engine (core/blocksparse.py):
-#: host-driven, its capacity counts occupied blocks.
+#: ``opt`` is the packed-exchange engine: the only backend whose plans take
+#: a mesh identity (PlanKey.mesh) and shard the state over it; without a
+#: mesh it runs the same math on one device.  ``blocksparse`` is the tiled
+#: occupied-block engine (core/blocksparse.py): host-driven, its capacity
+#: counts occupied blocks.
 MASKED_ENGINES = {
     "dense": _closure.masked_closure,
     "frontier": _closure.masked_frontier_closure,
     "bitpacked": _closure.masked_bitpacked_closure,
+    "opt": _closure.masked_opt_closure,
     "blocksparse": _blocksparse.masked_blocksparse_closure,
 }
 
 #: repair closure per backend — delta ingestion (frozen-row warm restart;
-#: the frontier backend shares the dense repair path)
+#: the frontier backend shares the dense repair path; the opt backend has no
+#: sharded repair: :func:`repair_engine_name` keys it as bitpacked)
 REPAIR_ENGINES = {
     "dense": _closure.masked_repair_closure,
     "frontier": _closure.masked_repair_closure,
@@ -66,10 +75,12 @@ REPAIR_ENGINES = {
 
 #: masked single-path (length-annotated) closure per backend.  Lengths are
 #: f32 — there is no packed layout to exploit — so the bitpacked backend
-#: routes through the dense min-plus path (see :func:`sp_engine_name`).
+#: routes through the dense min-plus path (see :func:`sp_engine_name`);
+#: the opt backend shards the compacted min-plus row block over the mesh.
 SP_ENGINES = {
     "dense": _semantics.masked_single_path_closure,
     "frontier": _semantics.masked_frontier_single_path_closure,
+    "opt": _semantics.masked_opt_single_path_closure,
 }
 
 
@@ -117,10 +128,10 @@ def sp_engine_name(engine: str, repair: bool = False) -> str:
 
 
 def repair_engine_name(engine: str) -> str:
-    """Backend name to key Boolean repair plans under.  The reference's
-    ``opt`` backend keys as ``bitpacked`` (repair is sized by an edit's
-    blast radius, so it always runs the single-device packed path); the
-    port's backends key as themselves."""
+    """Backend name to key Boolean repair plans under.  The ``opt``
+    backend keys as ``bitpacked`` (repair is sized by an edit's blast
+    radius, so it always runs the single-device packed path, and ``mesh``
+    stays out of repair keys); the other backends key as themselves."""
     return "bitpacked" if engine == "opt" else engine
 
 
@@ -150,7 +161,9 @@ class PlanKey:
     the observability build: the callable passes the
     :func:`repro_torch.obs.trace.emit_iteration` trampoline as the
     closure's ``iter_hook``.  It IS part of the identity, so the untraced
-    path never calls a hook."""
+    path never calls a hook.  ``opt`` plans are never instrumented (their
+    closures take no hook: under SPMD every rank would fire it);
+    engine/service.py never asks for one."""
 
     tables: ProductionTables  # a ConjunctiveTables for a conjunctive key
     engine: str
@@ -209,32 +222,52 @@ class CompiledClosureCache:
     def __len__(self) -> int:
         return len(self._exe)
 
-    def get(self, key: PlanKey, provenance: str | None = None):
-        """Callable for ``key``; ``provenance`` tags the request origin
-        (``"planned"`` / ``"pinned"``) in :class:`PlanStats` —
-        observability only, never part of the key."""
+    def get(self, key: PlanKey, mesh=None, provenance: str | None = None):
+        """Callable for ``key``.  A sharded key (``key.mesh != ()``) needs
+        the concrete device mesh on a miss — the key holds only its shape
+        identity.  ``provenance`` tags the request origin (``"planned"`` /
+        ``"pinned"``) in :class:`PlanStats` — observability only, never
+        part of the key."""
         self.stats.note_provenance(provenance)
         exe = self._exe.get(key)
         if exe is None:
             self.stats.compile_misses += 1
-            exe = self._exe[key] = self._build(key)
+            exe = self._exe[key] = self._build(key, mesh)
         else:
             self.stats.compile_hits += 1
         return exe
 
     @staticmethod
-    def _build(key: PlanKey):
+    def _plan_of(key: PlanKey, mesh):
+        """The MeshPlan a sharded key binds, None for a one-device key;
+        raises when the mesh given is not the one the key names."""
+        if not key.mesh:
+            return None
+        if mesh is None or mesh_key_of(mesh) != key.mesh:
+            raise ValueError(
+                f"PlanKey has mesh identity {key.mesh} but got "
+                f"{'no mesh' if mesh is None else mesh_key_of(mesh)}"
+            )
+        return MeshPlan.from_mesh(mesh)
+
+    @classmethod
+    def _build(cls, key: PlanKey, mesh=None):
         blocksparse = key.engine == "blocksparse" and key.semantics == "relational"
         masked_only = key.semantics in ("conjunctive", "count")
+        opt = key.engine == "opt" and not key.repair
         if key.semantics not in ("relational", "single_path", "conjunctive", "count") \
-                or key.mesh or (key.tile and not blocksparse) \
+                or (key.mesh and not opt) or (key.tile and not blocksparse) \
                 or (masked_only and key.repair):
             raise ValueError(f"the port builds no plan for {key}")
         single_path = key.semantics == "single_path"
-        kw = {
-            "row_capacity": key.row_capacity,
-            "iter_hook": emit_iteration if key.instrumented else None,
-        }
+        if opt:  # no hook: the opt closures take none
+            kw = {"row_capacity": key.row_capacity,
+                  "plan": cls._plan_of(key, mesh)}
+        else:
+            kw = {
+                "row_capacity": key.row_capacity,
+                "iter_hook": emit_iteration if key.instrumented else None,
+            }
         if key.semantics == "conjunctive":
             conj = CONJ_ENGINES[key.engine]
 

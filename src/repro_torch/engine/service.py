@@ -47,6 +47,17 @@ comparison — even when they coincide with logged edits — and drop every
 materialized state, as does a log compacted past the engine's version.
 Cached closure plans survive both paths: they depend only on the grammar
 and padded size.
+
+With ``EngineConfig(mesh=...)`` the ``opt`` closures shard their states
+over a ``torch.distributed`` device mesh (core/closure.py, shard/plans.py):
+a cached state is then a :class:`~repro_torch.shard.plans.ShardedState`,
+each rank holding its block.  The engine runs SPMD: every rank builds it
+with the same graph and grammar objects and makes the same calls in the
+same order, so every rank issues the same collectives and gets the same
+answer (the planner is deterministic in its features).  A sharded state
+is gathered onto every rank (``localize_state``) before a one-device
+closure or a repair uses it, and its host mirror receives only the rows
+its closure may have written, gathered to every rank.
 """
 from __future__ import annotations
 
@@ -84,6 +95,7 @@ from repro_torch.core.semantics import (
 )
 from repro_torch.delta.repair import (
     DeltaStats,
+    localize_state,
     placement_of,
     plan_repair,
     repair_single_path_state,
@@ -92,6 +104,7 @@ from repro_torch.delta.repair import (
 from repro_torch.delta.txn import EpochClock, Snapshot
 from repro_torch.obs.instruments import EngineMetrics
 from repro_torch.obs.trace import NULL_TRACER, iteration_scope
+from repro_torch.shard.plans import MeshPlan, ShardedState
 
 from .config import EngineConfig
 from .plan import (
@@ -100,6 +113,7 @@ from .plan import (
     bucket_for,
     conj_engine_name,
     count_engine_name,
+    mesh_key_of,
     repair_engine_name,
     sp_engine_name,
 )
@@ -124,6 +138,20 @@ def grammar_key(g: CNFGrammar | ConjunctiveGrammar):
         tuple(sorted((x, tuple(v)) for x, v in g.term_prods.items())),
         tuple(g.binary_prods),
         frozenset(g.nullable),
+    )
+
+
+def numbering(g: CNFGrammar | ConjunctiveGrammar) -> tuple:
+    """What the ranks of a mesh must agree on for ``g``: its nonterminals
+    in plane order and its productions, in a form whose ``repr`` does not
+    depend on the hash seed (sets and production order sorted)."""
+    if isinstance(g, ConjunctiveGrammar):
+        return grammar_key(g)  # tuples throughout
+    return (
+        tuple(g.nonterms),
+        sorted((x, sorted(v)) for x, v in g.term_prods.items()),
+        sorted(g.binary_prods),
+        sorted(g.nullable),
     )
 
 
@@ -200,7 +228,9 @@ class _GrammarState:
     # (warm closures only add entries, they never rewrite frozen ones)
     sp_paths: dict = field(default_factory=dict)
     # planner-visible state metadata: where each cached tensor lives
-    # ("local" | "none") and which backend last served it
+    # ("local" | "sharded" | "none") — kept current across queries AND
+    # repairs (a repair localizes a sharded state) — and which backend last
+    # served it
     placement: str = "none"
     sp_placement: str = "none"
     cnt_placement: str = "none"
@@ -225,6 +255,14 @@ class QueryEngine:
         self.graph = graph
         self.config = config
         self.device = resolve_device(config.device)
+        # Device mesh of the sharded ("opt") closures, None for one device;
+        # PlanKey carries its shape identity.  With a mesh each rank keeps
+        # its states on its current device.
+        self.mesh = config.mesh
+        self._mesh_key = mesh_key_of(config.mesh)
+        self._mesh_plan = None if self.mesh is None else MeshPlan.from_mesh(self.mesh)
+        if self.mesh is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
         #: configured engine name — ``"auto"`` means planner-routed; the
         #: backend that actually served a request is in its stats
         self.engine = config.engine
@@ -457,7 +495,7 @@ class QueryEngine:
             state.served_by = ""
             return
         mask = state.mask.copy()
-        T_dev = state.T
+        T_dev = localize_state(state.T)
         if plan.ins_sources.any():
             # base-row surgery on a copy: entries only grow on this path
             idx = np.nonzero(plan.ins_sources)[0]
@@ -509,7 +547,7 @@ class QueryEngine:
         state.cnt_base = count_base(
             self.graph, state.grammar, pad_to=self.n, device=self.device
         )
-        C_dev = state.cnt_C
+        C_dev = localize_state(state.cnt_C)
         reset = (plan.affected & mask) | plan.ins_sources
         if reset.any():
             idx = np.nonzero(reset)[0]
@@ -573,6 +611,12 @@ class QueryEngine:
     def _state_for(self, gkey: tuple, g) -> _GrammarState:
         state = self._states.get(gkey)
         if state is None:
+            if self._mesh_plan is not None:
+                # each rank builds its own grammar, and CNF conversion can
+                # number nonterminals differently under another hash seed:
+                # sharded planes of different nonterminals would mix
+                # silently, so the ranks must agree before any closure
+                self._mesh_plan.check_same("grammar's numbering", numbering(g))
             tables = (
                 ConjunctiveTables.from_grammar(g)
                 if isinstance(g, ConjunctiveGrammar)
@@ -621,12 +665,16 @@ class QueryEngine:
         cache: str,
         repair: bool = False,
     ) -> PlanDecision:
-        """Build the planner features for one closure call and decide.  The
-        port has no mesh, so the candidates are dense, frontier, bitpacked
-        and — when the graph is large enough for block skipping — blocksparse
-        (dense, bitpacked and blocksparse for a relational repair, dense and
-        frontier for single-path, dense and bitpacked for conjunctive, dense
-        for count)."""
+        """Build the planner features for one closure call and decide.
+
+        Every feature is something the engine already has on hand: the
+        seed mask, how many of its rows are new, graph density, grammar
+        size, the cached state's temperature and placement, the base
+        graph's occupied blocks, and the mesh's rank count
+        (``mesh_devices``, 0 without a mesh).  As in the reference, ``opt``
+        is a candidate only on a mesh of more than one rank (a query, not
+        a repair); blocksparse only when the graph is large enough for
+        block skipping."""
         placement = {
             "single_path": state.sp_placement, "count": state.cnt_placement,
         }.get(semantics, state.placement)
@@ -642,7 +690,7 @@ class QueryEngine:
             repair=repair,
             cache=cache,
             placement=placement,
-            mesh_devices=0,
+            mesh_devices=self.mesh.size() if self.mesh is not None else 0,
             # label-blind base-graph occupancy (O(E) host count) prices the
             # blocksparse candidate; the padded n is always a multiple of
             # every legal tile, so eligibility only needs the count itself
@@ -684,10 +732,17 @@ class QueryEngine:
         capacity through the same warm restart.  At most one fallback per
         run; pinned decisions and repairs never fall back.
 
+        With a mesh only the non-repair ``opt`` plans are sharded (they
+        carry the mesh identity, and shard a whole tensor themselves);
+        every other closure gets a sharded state gathered onto this rank's
+        device first (:func:`repro_torch.delta.repair.localize_state`).
+
         Returns ``(T_device, M_host, n_calls, fallback_event)``."""
         mask = np.asarray(seed)
         repair = frozen is not None
         eng_name = _key_engine(semantics, decision.engine, repair)
+        mesh_k = self._mesh_key if (not repair and eng_name == "opt") else ()
+        T = T if mesh_k else localize_state(T)
         cap = bucket_for(max(decision.row_capacity, int(mask.sum())), self.n)
         n_frozen = cap_c = 0
         if repair:
@@ -712,15 +767,17 @@ class QueryEngine:
             seed_rows=int(mask.sum()),
         ) as csp:
             while True:
-                instrumented = tracer.wants_iterations
+                # the opt closures take no hook (every rank would fire it)
+                instrumented = tracer.wants_iterations and eng_name != "opt"
                 misses_before = self.plans.stats.compile_misses
                 exe = self.plans.get(
                     PlanKey(
                         tables, eng_name, self.n, cap, repair=repair,
-                        ctx_capacity=cap_c, semantics=semantics,
+                        ctx_capacity=cap_c, semantics=semantics, mesh=mesh_k,
                         instrumented=instrumented,
                         tile=self.config.tile if eng_name == "blocksparse" else 0,
                     ),
+                    mesh=self.mesh,
                     provenance="pinned" if decision.pinned else "planned",
                 )
                 self.metrics.observe_cache(
@@ -758,6 +815,8 @@ class QueryEngine:
                             "planner.fallback", tracer.clock(), **fallback_event
                         )
                         eng_name = _key_engine(semantics, fb)
+                        mesh_k = self._mesh_key if eng_name == "opt" else ()
+                        T = T if mesh_k else localize_state(T)
                         cap = self.n
                         self.planner.note_fallback()
                         continue
@@ -837,16 +896,20 @@ class QueryEngine:
         if single_path:
             state.sp_L_host = self._mirror_rows(state, out, M & ~mask)
             state.sp_L, state.sp_mask = out, M
-            state.sp_placement = "local"
+            state.sp_placement = placement_of(out)
             state.sp_served_by = served
         elif count:
             state.cnt_C_host = self._mirror_rows(state, out, M & ~mask, "count")
             state.cnt_C, state.cnt_mask = out, M
-            state.cnt_placement = "local"
+            state.cnt_placement = placement_of(out)
             state.cnt_served_by = served
         else:
-            state.T, state.T_host, state.mask = out, out.cpu().numpy(), M
-            state.placement = "local"
+            if isinstance(out, ShardedState):  # never the whole sharded state
+                state.T_host = self._mirror_rows(state, out, M & ~mask, "relational")
+            else:
+                state.T_host = out.cpu().numpy()
+            state.T, state.mask = out, M
+            state.placement = placement_of(out)
             state.served_by = served
             state.deriv = None  # the packed index is a view of the old T_host
             if served == "blocksparse":  # counted on the device state
@@ -862,20 +925,30 @@ class QueryEngine:
         rows: np.ndarray,
         semantics: str = "single_path",
     ) -> np.ndarray:
-        """The host mirror of the length state ``L`` (or, with
-        ``semantics="count"``, of the count state) after a closure that may
-        have written only ``rows``.  A first closure starts the mirror from
-        the base lengths or counts, made on the host as the device state
-        was."""
-        count = semantics == "count"
-        host = state.cnt_C_host if count else state.sp_L_host
+        """The host mirror of the length state ``L`` (with
+        ``semantics="count"`` of the count state, with ``"relational"`` of
+        the Boolean state) after a closure that may have written only
+        ``rows``.  A first closure starts the mirror from the base lengths,
+        counts or matrix, made on the host as the device state was.  ``L``
+        may be a :class:`~repro_torch.shard.plans.ShardedState`: its rows
+        are gathered to every rank."""
+        count, relational = semantics == "count", semantics == "relational"
+        host = {"count": state.cnt_C_host, "relational": state.T_host}.get(
+            semantics, state.sp_L_host
+        )
+        N, n, _ = L.shape
+        itemsize = 1 if relational else 4
         if host is None:
             with self.tracer.span(
-                "state.mirror_init", cat="engine", bytes=4 * L.numel()
+                "state.mirror_init", cat="engine", bytes=itemsize * N * n * n
             ):
                 if count:  # zeros stay lazy: only the base entries are touched
                     host = np.zeros(tuple(L.shape), dtype=np.int32)
                     np.add.at(host, count_entries(self.graph, state.grammar), 1)
+                elif relational:
+                    host = init_matrix(
+                        self.graph, state.grammar, pad_to=self.n, device="cpu"
+                    ).numpy()
                 else:
                     host = init_lengths(
                         self.graph, state.grammar, pad_to=self.n, device="cpu"
@@ -883,10 +956,11 @@ class QueryEngine:
         idx = np.nonzero(rows)[0]
         with self.tracer.span(
             "closure.host_copy", cat="engine", rows=len(idx),
-            bytes=4 * L.shape[0] * len(idx) * L.shape[-1],
+            bytes=itemsize * N * len(idx) * n,
         ):
             tidx = torch.from_numpy(idx).to(L.device)
-            host[:, idx, :] = L[:, tidx, :].cpu().numpy()
+            got = L.rows(tidx) if isinstance(L, ShardedState) else L[:, tidx, :]
+            host[:, idx, :] = got.cpu().numpy()
         return host
 
     def _serve_relational(

@@ -760,3 +760,118 @@ def test_conjunctive_and_count_on_card_match_cpu(card, backend):
     if backend == "bitpacked":
         assert ops.launches > before[0]
 
+
+
+# ---------------------------------------------------------------------- #
+# the opt family in a one-rank NCCL world (NCCL takes one rank per card)
+# ---------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1 x 1 (data, model) mesh over a one-rank NCCL world of card 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+    yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    if own:
+        dist.destroy_process_group()
+
+
+def test_opt_closures_on_card_match_cpu(card, nccl_mesh):
+    """``opt_closure``, ``opt_step``, ``masked_opt_closure`` and
+    ``masked_opt_single_path_closure`` on the card, with ``plan=None`` and
+    with the mesh, equal the CPU's ``plan=None`` results; the relational
+    closures launch ``bitmm``, the single-path one ``minplus``."""
+    from repro_torch.core import closure, semantics
+    from repro_torch.shard.plans import MeshPlan
+
+    g = query1_grammar().to_cnf()
+    tables = tm.ProductionTables.from_grammar(g)
+    T0 = tm.init_matrix(paper_table_graph("foaf").repeat(2), g, device="cpu")
+    n = T0.shape[-1]
+    src = torch.zeros(n, dtype=torch.bool)
+    src[[0, 7, 300]] = True
+    L0 = semantics.base_lengths(T0)
+    want = {
+        "opt": closure.opt_closure(T0, tables),
+        "step": closure.opt_step(tm.pack_bits(T0), tables, n),
+        "masked": closure.masked_opt_closure(T0, tables, src, row_capacity=128),
+        "sp": semantics.masked_opt_single_path_closure(L0, tables, src, row_capacity=128),
+    }
+    T, L, S = T0.to(card), L0.to(card), src.to(card)
+    for plan in (None, MeshPlan.from_mesh(nccl_mesh)):
+        def whole(x):
+            return (x if plan is None else x.full()).cpu()
+
+        before = (ops.launches, ops.minplus_launches)
+        assert torch.equal(whole(closure.opt_closure(T, tables, plan=plan)), want["opt"])
+        step = closure.opt_step(tm.pack_bits(T), tables, n, plan=plan)
+        assert torch.equal(
+            step.cpu() if plan is None else tm.pack_bits(step.full()).cpu(), want["step"])
+        got = closure.masked_opt_closure(T, tables, S, row_capacity=128, plan=plan)
+        assert torch.equal(whole(got[0]), want["masked"][0])
+        assert torch.equal(got[1].cpu(), want["masked"][1]) and got[2] == want["masked"][2]
+        got = semantics.masked_opt_single_path_closure(L, tables, S, row_capacity=128,
+                                                       plan=plan)
+        assert torch.equal(whole(got[0]), want["sp"][0])
+        assert torch.equal(got[1].cpu(), want["sp"][1]) and got[2] == want["sp"][2]
+        torch.cuda.synchronize()
+        assert ops.launches > before[0] and ops.minplus_launches > before[1]
+
+
+def test_opt_engine_on_card_matches_engine_on_cpu(card, nccl_mesh):
+    """The mesh-backed ``opt`` engine on the card answers as the CPU's
+    one-device ``opt`` engine: pairs, witnesses, cache statuses and repair
+    stats through both semantics and an edit; the repair localizes the
+    sharded state and the next closure shards it again."""
+    from repro_torch.shard.plans import ShardedState
+
+    g = query1_grammar().to_cnf()
+    # the edit stays in copy 0 and the last batch asks for every row, so
+    # its closure runs on the repaired state
+    batches = [[Query(g, "S", sources=(0, 5)), Query(g, "S", sources=(3,),
+                                                      semantics="single_path")],
+               [Query(g, "S", semantics="single_path")]]
+
+    def run(dev, mesh):
+        eng = QueryEngine(paper_table_graph("skos").repeat(2),
+                          config=EngineConfig(engine="opt", device=dev, mesh=mesh))
+        out = [eng.query_batch(batches[0])]
+        (state,) = eng._states.values()
+        kinds = [type(state.T).__name__]
+        out.append(eng.apply_delta(delete=[(1, "subClassOf_r", 0)],
+                                   insert=[(3, "type_r", 20), (20, "type", 5)]))
+        kinds.append(type(state.T).__name__)
+        out += [eng.query_batch(b) for b in batches]
+        kinds.append(type(state.sp_L).__name__)
+        return out, state, kinds
+
+    want, want_state, _ = run("cpu", None)
+    got, got_state, kinds = run("cuda", nccl_mesh)
+    assert kinds == ["ShardedState", "Tensor", "ShardedState"]
+    for w, x in zip(want, got):
+        if isinstance(w, list):
+            assert [(r.pairs, r.paths, r.stats["cache"], r.stats["engine"]) for r in x] == \
+                [(r.pairs, r.paths, r.stats["cache"], r.stats["engine"]) for r in w]
+        else:
+            assert x.as_dict() == w.as_dict()
+    assert np.array_equal(got_state.T_host, want_state.T_host)
+    assert np.array_equal(got_state.sp_L_host, want_state.sp_L_host)
+    assert isinstance(got_state.sp_L, ShardedState)
+    assert torch.equal(got_state.sp_L.full().cpu(), want_state.sp_L)
+
+
+def test_cuda_mesh_refuses_a_cpu_engine(card, nccl_mesh):
+    with pytest.raises(ValueError, match="must match"):
+        EngineConfig(engine="opt", device="cpu", mesh=nccl_mesh)
+    with pytest.raises(ValueError, match="only supported by the 'opt' engine"):
+        EngineConfig(engine="bitpacked", device="cuda", mesh=nccl_mesh)

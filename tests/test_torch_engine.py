@@ -167,4 +167,4 @@ def test_engine_on_cuda_without_a_card_raises():
 
 def test_unknown_engine_rejected():
     with pytest.raises(ValueError, match="unknown engine"):
-        EngineConfig(engine="opt")
+        EngineConfig(engine="sparse")

@@ -57,6 +57,7 @@ def test_the_port_has_the_slice_modules():
         "engine/plan.py", "engine/planner.py", "engine/service.py",
         "serve/config.py", "serve/coalesce.py", "serve/server.py",
         "serve/loadgen.py", "serve/__init__.py",
+        "shard/__init__.py", "shard/plans.py",
     } <= names
     for source in ("bitmm.cu", "tile_bitmm.cu", "minplus.cu", "count_mm.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / source).exists()

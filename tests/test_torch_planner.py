@@ -75,7 +75,7 @@ def _summary(r):
 def test_engine_choices_match_reference():
     from repro.engine.plan import MASKED_ENGINES as J_MASKED
 
-    assert set(ENGINES) == set(J_MASKED) - {"opt"}
+    assert set(ENGINES) == set(J_MASKED)
     assert DEFAULT_TILE == J_DEFAULT_TILE
 
 
