@@ -67,7 +67,14 @@ the 1 x 1 mesh, word-equal to ``bitpacked_closure`` and to Hellings, and
 ``QueryEngine(engine="opt", mesh=...)`` through all pairs, the
 256-source batch, 16 single-path queries, seeded edits and a query that
 shards the repaired state again, with the words each exchange moved per
-iteration.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
+iteration.  Then the planner's calibration on the card
+(tools/calibrate_planner_torch.py's ``calibrate()`` up to n = 4,096 at 1,
+4, 16 sources and all pairs, single-path all pairs at n = 1,024 only, and
+at the main path's n at 1 and 16 sources; the round trip of the saved
+profile), the fitted coefficients beside the defaults and the grid
+decisions they change, and the main path's 256-source ``auto`` batch and
+``auto`` edit under both profiles in turns, each equal to a pinned
+bitpacked engine's.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
 ``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
@@ -3117,6 +3124,171 @@ def phase_opt(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------- #
+# the planner's calibration on the card, and the fitted profile against
+# the defaults on the main path's auto calls
+# ---------------------------------------------------------------------- #
+
+CAL_SIZES = (1024, 4096)  # the calibration grid: sizes x CAL_SOURCES
+CAL_SOURCES = (1, 4, 16)
+# and, per semantics, all pairs ("n") and the main path's n at 1 and 16
+# sources.  All pairs: single path only at n = 1,024, because at 4,096 its
+# witness extraction on the host took 39 s a point; none at 15,872 (the
+# single-path state alone would be 7 GB)
+CAL_EXTRA = (
+    ((1024, 4096), ("n",), ("relational",)),
+    ((1024,), ("n",), ("single_path",)),
+    ((15872,), (1, 16), ("relational", "single_path")),
+)
+CAL_BACKENDS = ("dense", "frontier", "bitpacked")
+CAL_BATCH = 256  # the main path's auto batch: phase_main_path's sources
+
+
+def calibration_tool():
+    """tools/calibrate_planner_torch.py of this checkout, loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "calibrate_planner_torch.py"
+    spec = importlib.util.spec_from_file_location("calibrate_planner_torch", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def phase_calibrate(dev) -> dict:
+    """The planner's calibration on the card: the tool's ``calibrate()``
+    over CAL_SIZES x CAL_SOURCES and, through its ``extra`` grids, all
+    pairs (single path at n = 1,024 only) and the main path's n = 15,872
+    at 1 and 16 sources; the round trip of the saved
+    profile; the fitted coefficients beside the defaults; the canonical
+    grid's decisions that the fitted profile routes differently.  Then the
+    main path's 256-source ``auto`` batch and the ``auto`` ``apply_delta``
+    (copies 0 and 1, seed 7, as ``phase_delta``) under the defaults and the
+    fitted profile in turns (default, fitted, fitted, default), each
+    pair set equal to a pinned bitpacked engine's, which launches
+    ``bitmm`` and, in its repair, ``bitmm_or``; its edited pairs equal
+    Hellings.  Returns the phase's launches of ``bitmm``,
+    ``bitmm_or`` and ``minplus``."""
+    import tempfile
+
+    from repro_torch.core.grammar import query1_grammar
+    from repro_torch.core.graph import paper_table_graph
+    from repro_torch.engine import EngineConfig, PlannerProfile, Query, QueryEngine
+    from repro_torch.engine.planner import _DEFAULT_COEF
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    t_phase = time.perf_counter()
+    tool = calibration_tool()
+    total = {"bitmm": 0, "bitmm_or": 0, "minplus": 0}
+
+    def count(launches):
+        for k in total:
+            total[k] += launches[k]
+        return launches
+
+    log: list[str] = []
+    profile, fit_ms, launches = run_phase(lambda: tool.calibrate(
+        list(CAL_SIZES), list(CAL_SOURCES), list(CAL_BACKENDS),
+        device=str(dev), log=log.append, extra=CAL_EXTRA))
+    count(launches)
+    check(launches["bitmm"] > 0, "the bitpacked family's fit never launched bitmm")
+    check(launches["minplus"] > 0, "the single-path families' fit never launched minplus")
+    with tempfile.TemporaryDirectory() as tmp:
+        round_trip = tool.verify_round_trip(profile, profile.save(Path(tmp) / "p.json"))
+    check(round_trip, "the saved and reloaded profile decides differently")
+    defaults = PlannerProfile()
+    changed = [
+        {"n": f.n, "seed_rows": f.seed_rows, "semantics": f.semantics,
+         "mesh_devices": f.mesh_devices, "default": a["label"], "fitted": b["label"]}
+        for f, a, b in zip(tool.grid_features(), tool.decision_grid(defaults),
+                           tool.decision_grid(profile))
+        if a["label"] != b["label"]
+    ]
+    emit("calibrate", sizes=list(CAL_SIZES), sources=list(CAL_SOURCES),
+         extra=[[list(part) for part in grid] for grid in CAL_EXTRA],
+         fit_seconds=fit_ms / 1e3, host=profile.host,
+         coef={k: {"fitted": list(profile.coef[k]), "default": list(ab)}
+               for k, ab in _DEFAULT_COEF.items()},
+         clamped=[line for line in log if "clamped" in line],
+         points=[line for line in log if " n=" in line],
+         reach_factor=profile.reach_factor, default_reach_factor=defaults.reach_factor,
+         round_trip="OK", routes_changed=len(changed),
+         grid_decisions=len(tool.grid_features()), changed=changed,
+         launches=launches)
+
+    g = query1_grammar().to_cnf()
+    off = paper_table_graph(BASE_GRAPH).n_nodes
+    graph = paper_table_graph(BASE_GRAPH).repeat(PIZZA_COPIES)
+    sources = np.random.default_rng(0).choice(graph.n_nodes, size=CAL_BATCH,
+                                              replace=False).tolist()
+    batch = [Query(g, "S", sources=(int(s),)) for s in sources]
+    untouched = {(i, j) for i, j in shifted_oracle() if i >= 2 * off}
+
+    def engine_of(gr, name, prof=None):
+        return QueryEngine(
+            gr, config=EngineConfig(engine=name, device=str(dev), profile=prof),
+            metrics=MetricsRegistry(), tracer=Tracer(iteration_events=False),
+        )
+
+    def batch_run(name, prof=None):
+        eng = engine_of(graph, name, prof)
+        outs, ms, launches = run_phase(lambda: eng.query_batch(batch))
+        route = outs[0].stats.planner["label"]
+        check_route_launched((outs[0].stats.fallback or {}).get("to", route),
+                             count(launches), f"calibrate batch on {name}")
+        return [o.pairs for o in outs], {
+            "route": route, "wall_ms": ms, "launches": launches,
+            "candidates": outs[0].stats.planner["candidates"]}
+
+    def delta_run(name, prof=None):
+        """A warm all-pairs state, then the seeded edits of phase_delta."""
+        gr = paper_table_graph(BASE_GRAPH).repeat(PIZZA_COPIES)
+        eng = engine_of(gr, name, prof)
+        warm, warm_ms, launches = run_phase(lambda: eng.query(Query(g, "S")))
+        count(launches)
+        delete, insert = _seeded_edits(np.random.default_rng(7), gr, g, off)
+        first = len(eng.tracer.spans)
+        st, ms, launches = run_phase(lambda: eng.apply_delta(insert=insert, delete=delete))
+        repairs = [s.attrs["engine"] for s in eng.tracer.spans[first:]
+                   if s.name == "closure.execute" and s.attrs.get("repair")]
+        for route in repairs:  # a packed repair launches bitmm_or
+            if route == "bitpacked":
+                check(launches["bitmm_or"] > 0, f"calibrate: the {name} repair "
+                      "routed to bitpacked never launched bitmm_or")
+        count(launches)
+        res = eng.query(Query(g, "S"))
+        if name == "bitpacked":  # the edited graph's pairs by Hellings
+            check(res.pairs == untouched | _copy_oracle(gr, g, 0, off)
+                  | _copy_oracle(gr, g, 1, off), "the pinned edit's pairs != Hellings")
+        decision = warm.stats.planner
+        return res.pairs, {"warm_route": decision["label"],
+                           "warm_candidates": decision["candidates"],
+                           "warm_allpairs_ms": warm_ms, "route": repairs,
+                           "wall_ms": ms, "launches": launches, **st.as_dict()}
+
+    want_batch, pinned_batch = batch_run("bitpacked")
+    check(pinned_batch["launches"]["bitmm"] > 0, "the pinned batch never launched bitmm")
+    want_delta, pinned_delta = delta_run("bitpacked")
+    check(pinned_delta["launches"]["bitmm_or"] > 0,
+          "the pinned bitpacked repair never launched bitmm_or")
+    runs = {"default": [], "fitted": []}
+    for label in ("default", "fitted", "fitted", "default"):
+        prof = defaults if label == "default" else profile
+        pairs, row_b = batch_run("auto", prof)
+        check(pairs == want_batch, f"the auto batch under the {label} profile "
+              "!= the pinned bitpacked batch")
+        pairs, row_d = delta_run("auto", prof)
+        check(pairs == want_delta, f"the auto edit under the {label} profile "
+              "!= the pinned bitpacked edit")
+        runs[label].append({"batch": row_b, "apply_delta": row_d})
+    emit("calibrate_routes", n=graph.n_nodes, pinned={"batch": pinned_batch,
+         "apply_delta": pinned_delta}, **runs,
+         phase_seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return total
+
+
 HBM_BYTES_PER_MS = 3.35e9  # the H100's published 3.35 TB/s
 
 
@@ -3213,8 +3385,11 @@ def main() -> None:
         help="only time pack_bits and unpack_bits on the main path's state "
              "against their 32-step forms (no build, no result line)")
     args = parser.parse_args()
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import repro_torch  # noqa: F401  (fails here outside a checkout)
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        sys.exit(f"chip_smoke: no port beside this script ({src / 'repro_torch'} "
+                 "is missing): run it from a checkout of the repository")
+    sys.path.insert(0, str(src))
 
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -3254,10 +3429,13 @@ def main() -> None:
     del T
     torch.cuda.empty_cache()
     opt = phase_opt(dev)
-    # launches on the main paths: the earlier phases' and the opt phase's
-    kernels[0]["launches"] += opt["bitmm"]
-    kernels[1]["launches"] += opt["bitmm_or"]
-    minplus_row["launches"] += opt["minplus"]
+    cal = phase_calibrate(dev)
+    # launches on the main paths: the earlier phases', the opt phase's and
+    # the calibration's
+    for more in (opt, cal):
+        kernels[0]["launches"] += more["bitmm"]
+        kernels[1]["launches"] += more["bitmm_or"]
+        minplus_row["launches"] += more["minplus"]
     # the count row at the 16-source batch's shape: every number measured there
     print(json.dumps({"kernels": kernels + [tile_row, minplus_row, count_rows[-1]]}),
           flush=True)

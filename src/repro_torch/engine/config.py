@@ -57,8 +57,10 @@ class EngineConfig:
         Ignored by the dense-state backends.
     ``profile``
         Planner cost profile: a :class:`PlannerProfile`, a path to a JSON
-        profile, or ``None`` for the defaults (the ``REPRO_PLANNER_PROFILE``
-        environment variable, if set, names the file to load).
+        profile, or ``None`` for the defaults (the port's own
+        ``REPRO_TORCH_PLANNER_PROFILE`` environment variable, if set, names
+        the file to load; the reference's ``REPRO_PLANNER_PROFILE`` is not
+        read).
     """
 
     engine: str = "auto"

@@ -38,9 +38,10 @@ wins when the seed is expected to reach most of the graph (the paper's
 original all-pairs regime).
 
 Coefficients live in a versioned JSON :class:`PlannerProfile`
-(``tools/calibrate_planner.py`` fits them per host and persists them;
-``benchmarks/bench_planner.py`` checks the decisions).  Uncalibrated
-hosts get conservative CPU-measured defaults.
+(``tools/calibrate_planner_torch.py`` fits them per host and device and
+persists them).  Uncalibrated hosts get the reference's conservative
+CPU-measured defaults, unchanged, so an uncalibrated port routes exactly
+as the reference does.
 
 Runtime fallback
 ----------------
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -65,8 +67,9 @@ from .plan import bucket_for
 PROFILE_VERSION = 1
 
 #: environment override: path of the planner profile to load when the
-#: engine config doesn't name one explicitly.
-PROFILE_ENV = "REPRO_PLANNER_PROFILE"
+#: engine config doesn't name one explicitly.  The port's own variable: a
+#: profile fitted for the reference package does not steer the port.
+PROFILE_ENV = "REPRO_TORCH_PLANNER_PROFILE"
 
 #: default (alpha s/Munit, beta s) per executable family — measured on a
 #: CPU host (interpret-mode kernels); a calibrated profile replaces them.
@@ -138,7 +141,7 @@ class PlannerProfile:
             raise ValueError(
                 f"planner profile version {ver!r} != supported "
                 f"{PROFILE_VERSION} (recalibrate with "
-                "tools/calibrate_planner.py)"
+                "tools/calibrate_planner_torch.py)"
             )
         return cls(
             version=ver,
@@ -159,6 +162,16 @@ class PlannerProfile:
     @classmethod
     def load(cls, path: str | Path) -> "PlannerProfile":
         return cls.from_json(json.loads(Path(path).read_text()))
+
+
+def host_fingerprint(device: str = "cuda") -> str:
+    """Informational host tag stamped into calibrated profiles:
+    ``node:device type:device name`` (the card's name on ``cuda``)."""
+    import torch
+
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return f"{platform.node()}:{dev.type}:{name}"
 
 
 @dataclass(frozen=True)

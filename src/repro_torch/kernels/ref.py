@@ -128,12 +128,15 @@ def minplus_ref(
 
     Tiled over the contraction axis k, so the peak temporary is ``(P,
     chunk, R, C)`` f32 plus the chunk's gathered rhs rows; ``chunk=None``
-    takes it from the device's ``MINPLUS_TEMP_BYTES``.  Lengths are never
-    negative, so no NaN can arise (``inf + x`` is ``inf``)."""
+    takes it from the device's ``MINPLUS_TEMP_BYTES``.  On the CPU only
+    the chunk's finite lhs entries are expanded (lengths are sparse, and
+    an inf lhs entry adds only inf candidates), into at most the same
+    temporary.  Lengths are never negative, so no NaN can arise (``inf +
+    x`` is ``inf``)."""
     P, rows, K = lhs.shape
     cols = base.shape[-1]
     if acc is not None:
-        out = acc.clone()
+        out = acc.clone(memory_format=torch.contiguous_format)
     else:
         out = torch.full((P, rows, cols), float("inf"), dtype=torch.float32,
                          device=lhs.device)
@@ -146,11 +149,25 @@ def minplus_ref(
         ks = slice(c0, c0 + chunk)
         idx = row[ks] if row is not None else torch.arange(
             c0, min(c0 + chunk, K), device=lhs.device)
+        if lhs.device.type == "cpu":
+            _minplus_finite(out, lhs[:, :, ks], base, slabs, idx)
+            continue
         rk = base[slabs[:, None], idx[None, :]]  # (P, ch, cols)
         lk = lhs[:, :, ks].transpose(1, 2)  # (P, ch, rows)
         cand = (lk[:, :, :, None] + rk[:, :, None, :]).amin(dim=1)
         torch.minimum(out, cand, out=out)
     return out
+
+
+def _minplus_finite(out, lk, base, slabs, idx) -> None:
+    """``out = min(out, lk (x) base)`` over the finite entries of the lhs
+    chunk ``lk`` (P, R, ch) only: one candidate row per entry, folded into
+    ``out`` (P, R, C), contiguous, by an ``amin`` scatter."""
+    p, i, k = torch.nonzero(lk != float("inf"), as_tuple=True)
+    if len(p):
+        cand = lk[p, i, k][:, None] + base[slabs[p], idx[k]]  # (entries, C)
+        dst = (p * out.shape[1] + i)[:, None].expand_as(cand)
+        out.view(-1, out.shape[-1]).scatter_reduce_(0, dst, cand, "amin")
 
 
 #: the saturation sentinel of the count semiring, 2^32 - 1: the all-ones

@@ -875,3 +875,27 @@ def test_cuda_mesh_refuses_a_cpu_engine(card, nccl_mesh):
         EngineConfig(engine="opt", device="cpu", mesh=nccl_mesh)
     with pytest.raises(ValueError, match="only supported by the 'opt' engine"):
         EngineConfig(engine="bitpacked", device="cuda", mesh=nccl_mesh)
+
+
+def test_calibration_tool_smoke_on_card(card, tmp_path):
+    """tools/calibrate_planner_torch.py --smoke on the card: rc 0, the
+    round trip OK, and a fitted profile stamped with the card's name."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "profile.json"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run(
+        [sys.executable, str(root / "tools" / "calibrate_planner_torch.py"),
+         "--smoke", "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=600,
+    )
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+    assert "round-trip OK" in run.stdout
+    profile = json.loads(out.read_text())
+    assert profile["fitted"] is True and profile["version"] == 1
+    assert profile["host"].endswith(f":cuda:{torch.cuda.get_device_name(card)}")

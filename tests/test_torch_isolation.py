@@ -1,5 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro``, and the
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py``, not ``tools/calibrate_planner_torch.py`` and none of
+the port's examples (``examples/*_torch.py``) imports JAX or the reference
+package ``repro``, and the
 port's library code prints nothing (the port's counterpart of
 tools/check_prints.py)."""
 import ast
@@ -9,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-FILES = PORT_FILES + [ROOT / "chip_smoke.py"]
+FILES = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "calibrate_planner_torch.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(tree: ast.AST):
