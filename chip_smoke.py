@@ -74,7 +74,15 @@ at the main path's n at 1 and 16 sources; the round trip of the saved
 profile), the fitted coefficients beside the defaults and the grid
 decisions they change, and the main path's 256-source ``auto`` batch and
 ``auto`` edit under both profiles in turns, each equal to a pinned
-bitpacked engine's.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
+bitpacked engine's.  Last, the LM serving path (``lm_serve``):
+``smollm-360m`` at full width, 409,007,040 parameters from a seeded
+generator, its f32 decode held to the teacher-forced forward, then served
+in bf16 through ``repro_torch.launch.serve.serve`` (batch 4, prompt 32,
+gen 16) with its latencies, peak memory, the device operations of one
+decode step (``torch.profiler``), the step's bound and its code's own
+traffic, bf16 decode against forward to 2e-2; the reduced
+configs of the five LM archs, bf16 decode against forward, and the card
+against the CPU port in f32.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
 ``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
@@ -3312,6 +3320,226 @@ def unpack_loop(Tp: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(*Tp.shape[:-1], w * 32)[..., :n]
 
 
+LM_ARCH = "smollm-360m"  # the registry's default --arch, served at full width
+LM_PARAMS = 409_007_040  # its TransformerConfig.param_count()
+
+
+def lm_decode_and_forward(model, cfg, tokens, dev):
+    """``serve_step`` token by token and the teacher-forced ``forward`` over
+    ``tokens`` (B, S): both (B, S, vocab) f32 logits."""
+    from repro_torch.models import transformer as tf
+
+    B, S = tokens.shape
+    with torch.inference_mode():
+        full, _ = tf.forward(model, tokens, cfg)
+        kv = tf.init_cache(cfg, B, S, device=dev)
+        steps = []
+        for t in range(S):
+            logits, kv = tf.serve_step(model, kv, tokens[:, t:t + 1], t, cfg)
+            steps.append(logits)
+    return torch.stack(steps, dim=1), full
+
+
+def lm_excess(got, want, rtol: float, atol: float) -> float:
+    """The largest ``|got - want| - (atol + rtol |want|)``: at most 0 where
+    ``got`` is within the tolerance of ``want`` everywhere."""
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense on the tensor cores
+
+
+def lm_step_traffic(cfg, batch: int, prompt_len: int, gen: int) -> dict:
+    """One decode step of a dense config, averaged over the run's decode
+    positions ``prompt_len .. prompt_len + gen - 1``.
+
+    ``need_bytes``, what the function must move: every weight read once at
+    its stored width (f32), the embedding's ``batch`` rows only; the keys
+    and values of the earlier positions each attends to read, this
+    position's written (activation dtype); the tokens read, the f32 logits
+    written.  ``ops``: two a weight per token, and the scores and the
+    weighted sum over the attended positions.  ``bound_ms`` is the larger
+    of ``need_bytes`` over the HBM rate and ``ops`` over the peak rate of
+    the activation dtype.
+
+    ``impl_bytes``, what ``serve_step``'s code moves for the same weights
+    and caches: each matrix read in f32 and its cast written and read back
+    (8 bytes a parameter in bf16), the unembedding also cast back to f32
+    for the f32 logits (16 bytes), the norm scales read in f32, every
+    cache slot read."""
+    from repro_torch.models import transformer as tf
+
+    if cfg.moe:
+        raise ValueError("the traffic of a MoE step depends on the routing")
+    act = torch.finfo(tf._act_dtype(cfg)).bits // 8
+    model = tf.Transformer(cfg, device="meta")
+    n_all = sum(p.numel() for p in model.parameters())
+    norms = sum(p.numel() for name, p in model.named_parameters() if "norm" in name)
+    embed, unembed = model.embed.numel(), model.unembed.numel()
+    matrices = n_all - norms - embed - unembed  # those of the blocks
+    slot = batch * cfg.n_kv_heads * cfg.hd * act  # one position's key (or value)
+    io = batch * 8 + batch * cfg.vocab * 4  # token ids in, f32 logits out
+    max_seq = prompt_len + gen
+    need, ops = [], []
+    for pos in range(prompt_len, max_seq):
+        attended = [min(pos + 1, cfg.window) if cfg.window and cfg.layer_is_local(i) else pos + 1
+                    for i in range(cfg.n_layers)]
+        need.append((n_all - embed) * 4 + batch * cfg.d_model * 4 + io
+                    + sum(2 * (a - 1) * slot + 2 * slot for a in attended))
+        ops.append(2 * batch * (matrices + unembed)
+                   + sum(4 * batch * cfg.n_heads * cfg.hd * a for a in attended))
+    cast = 2 * act if act < 4 else 0  # the cast written and read back
+    unembed_bytes = 4 + (2 * act + 4 + 4 if act < 4 else 0)  # and back to f32, read
+    impl = (matrices * (4 + cast) + unembed * unembed_bytes + norms * 4
+            + batch * cfg.d_model * 4 + io
+            + sum(2 * (tf.cache_len(cfg, i, max_seq) + 1) * slot for i in range(cfg.n_layers)))
+    need_bytes, n_ops = float(np.mean(need)), float(np.mean(ops))
+    rate = BF16_OPS_PER_S if act == 2 else FP32_OPS_PER_S
+    bytes_ms, ops_ms = need_bytes / HBM_BYTES_PER_S * 1e3, n_ops / rate * 1e3
+    return {"need_bytes": need_bytes, "ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "impl_bytes": impl, "impl_ms": impl / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_step_launches(model, cfg, batch: int, max_seq: int, dev) -> dict:
+    """Device operations of one decode step (``torch.profiler``), by kind,
+    the most frequent kernels by name, and the device's busy time: the sum
+    of the operations' durations."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    kv = tf.init_cache(cfg, batch, max_seq, device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        tf.serve_step(model, kv, tok, 0, cfg)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tf.serve_step(model, kv, tok, 1, cfg)
+            torch.cuda.synchronize()
+    events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    names = Counter(ev.name for ev in events)
+    kinds = Counter("copy" if n.startswith("Memcpy") else
+                    "fill" if n.startswith("Memset") else "kernel" for n in names.elements())
+    return {"kinds": dict(kinds), "by_name": dict(names.most_common(8)),
+            "busy_ms": sum(ev.time_range.elapsed_us() for ev in events) / 1e3}
+
+
+def phase_lm_serve(dev) -> None:
+    """The LM serving path of ``repro_torch`` (``models/``, ``launch/serve``):
+    (a) ``smollm-360m`` at full width in f32, decode logits against the
+    teacher-forced forward's at every step (B = 2, S = 24) to 2e-3 absolute;
+    (b) the same weights served in the config's own bf16 through
+    ``launch.serve.serve`` (batch 4, prompt 32, gen 16: the reference
+    driver's defaults), with its timings, peak memory, the device operations
+    of one decode step, the step's bound and the code's own weight and cache
+    traffic (``lm_step_traffic``), and beside them the prompt through one
+    batched ``prefill_step`` instead of the decode path, and its decode
+    logits against the forward's (B = 2, S = 24) to the reference's 2e-2
+    (rtol and atol); (c) the five LM archs'
+    reduced configs in bf16, decode against forward to the reference's own
+    2e-2 (gemma at S = 40, past its window); (d) the card against the port
+    on the CPU, reduced configs in f32 with the same weights, to 1e-4."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(22)
+
+    def tokens(cfg, B, S):
+        return torch.randint(0, cfg.vocab, (B, S), generator=gen).to(dev)
+
+    # (a) full width, f32
+    cfg = registry.get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tf.Transformer(cfg32, device=dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == LM_PARAMS == cfg.param_count(), f"{LM_ARCH}: {n_params} parameters")
+    dec, full = lm_decode_and_forward(model, cfg32, tokens(cfg, 2, 24), dev)
+    err32 = (dec - full).abs().max().item()
+    check(bool(torch.isfinite(full).all()), "full-width f32 logits not finite")
+    check(err32 <= 2e-3, f"full-width f32 decode vs forward: {err32}")
+    emit("lm_serve", part="full_width_f32", arch=LM_ARCH, params=n_params,
+         weight_bytes=n_params * 4, build_s=build_s, B=2, S=24,
+         max_abs_err=err32, tol_abs=2e-3,
+         greedy_equal=(dec.argmax(-1) == full.argmax(-1)).float().mean().item())
+
+    # (b) full width, the config's own bf16, through serve()
+    batch, prompt_len, n_gen = 4, 32, 16
+    serve(cfg, batch, 2, 2, device=dev, model=model)  # warm: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = serve(cfg, batch, prompt_len, n_gen, device=dev, model=model)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(res["tokens"].shape == (batch, n_gen), f"served tokens {res['tokens'].shape}")
+    check(bool(((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all()), "token ids out of range")
+    ids = torch.from_numpy(res["prompts"]).to(dev)
+    with torch.inference_mode():
+        tf.prefill_step(model, ids, cfg)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.prefill_step(model, ids, cfg)
+        torch.cuda.synchronize()
+        prefill_step_ms = (time.perf_counter() - t0) * 1e3
+    step = lm_step_launches(model, cfg, batch, prompt_len + n_gen, dev)
+    traffic = lm_step_traffic(cfg, batch, prompt_len, n_gen)
+    dec, full = lm_decode_and_forward(model, cfg, tokens(cfg, 2, 24), dev)
+    check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()), "bf16 logits not finite")
+    excess_b = lm_excess(dec, full, 2e-2, 2e-2)
+    emit("lm_serve", part="full_width_bf16", arch=LM_ARCH, batch=batch,
+         prompt_len=prompt_len, gen=n_gen, prefill_ms=res["prefill_ms"],
+         prefill_step_ms=prefill_step_ms,
+         decode_p50_ms=res["p50_ms"], decode_p95_ms=res["p95_ms"],
+         decode_ms=res["decode_ms"], tokens_per_s=res["tokens_per_s"],
+         max_memory_allocated=peak, step_device_ops=step["kinds"],
+         step_kernels_by_name=step["by_name"], step_device_busy_ms=step["busy_ms"],
+         step_need_bytes=traffic["need_bytes"], step_ops=traffic["ops"],
+         step_bound_ms=traffic["bound_ms"], step_bound_by=traffic["bound_by"],
+         step_impl_bytes=traffic["impl_bytes"], step_impl_ms=traffic["impl_ms"],
+         bf16_decode_vs_forward_max_abs=(dec - full).abs().max().item(),
+         bf16_decode_vs_forward_excess=excess_b, bf16_tol=2e-2,
+         bf16_greedy_equal=(dec.argmax(-1) == full.argmax(-1)).float().mean().item(),
+         first_row=res["tokens"][0].tolist())
+    check(excess_b <= 0, f"{LM_ARCH} full-width bf16: decode vs forward past 2e-2")
+    del model, dec, full
+    torch.cuda.empty_cache()
+
+    # (c) the reduced configs, bf16, decode against forward; (d) card vs CPU
+    archs = [a for a, c in registry.ARCHS.items() if isinstance(c, TransformerConfig)]
+    for seed, arch in enumerate(archs):
+        small = reduce_config(registry.get_config(arch))
+        S = 40 if small.window else 24
+        model = tf.Transformer(small, device=dev, seed=seed)
+        dec, full = lm_decode_and_forward(model, small, tokens(small, 2, S), dev)
+        excess_c = lm_excess(dec, full, 2e-2, 2e-2)
+        small32 = dataclasses.replace(small, dtype="float32")
+        on_cpu = tf.Transformer(small32, device="cpu", seed=seed)
+        ids = tokens(small, 2, S)
+        card = lm_decode_and_forward(copy.deepcopy(on_cpu).to(dev), small32, ids, dev)
+        host = lm_decode_and_forward(on_cpu, small32, ids.cpu(), torch.device("cpu"))
+        excess_d = max(lm_excess(c.cpu(), h, 1e-4, 1e-4) for c, h in zip(card, host))
+        emit("lm_serve", part="reduced", arch=arch, S=S, dtype=small.dtype,
+             decode_vs_forward_max_abs=(dec - full).abs().max().item(),
+             decode_vs_forward_excess=excess_c,
+             card_vs_cpu_f32_max_abs=max((c.cpu() - h).abs().max().item()
+                                         for c, h in zip(card, host)),
+             card_vs_cpu_excess=excess_d)
+        check(excess_c <= 0, f"{arch} reduced bf16: decode vs forward past 2e-2")
+        check(excess_d <= 0, f"{arch} reduced f32: card vs CPU past 1e-4")
+    emit("lm_serve", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def phase_packing(dev) -> None:
     """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
     (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
@@ -3430,6 +3658,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     opt = phase_opt(dev)
     cal = phase_calibrate(dev)
+    phase_lm_serve(dev)
     # launches on the main paths: the earlier phases', the opt phase's and
     # the calibration's
     for more in (opt, cal):

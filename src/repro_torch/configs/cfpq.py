@@ -1,0 +1,5 @@
+"""cfpq — thin module per assignment structure; config in registry."""
+from .registry import CFPQ as CONFIG  # noqa: F401
+from .registry import get_shapes
+
+SHAPES = get_shapes(CONFIG.arch_id)

@@ -1,0 +1,5 @@
+"""mace — thin module per assignment structure; config in registry."""
+from .registry import MACE as CONFIG  # noqa: F401
+from .registry import get_shapes
+
+SHAPES = get_shapes(CONFIG.arch_id)

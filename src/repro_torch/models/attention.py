@@ -1,0 +1,162 @@
+"""Attention as torch ops: GQA, causal and sliding-window masks, the
+online-softmax chunk loop, the banded local form and one-token decode (the
+port of the reference's ``models/attention.py``).
+
+Every product that the reference asks for with ``preferred_element_type=
+float32`` is taken here on f32 operands: a bf16 operand is exact in f32, so
+the products and their f32 sums are those of a bf16 x bf16 -> f32 dot, where
+a bf16 ``einsum`` would round its output to bf16.  The numerics are the
+reference's own; ``F.scaled_dot_product_attention`` would change them.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, H, hd), k: (B, Sk, KV, hd) -> f32 (B, KV, G, Sq, Sk)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    return torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (a Python loop over chunks).
+
+    Shapes: q (B, S, H, hd); k, v (B, S, KV, hd) with H % KV == 0.
+    ``window > 0`` restricts to a sliding window (local layers).
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd**-0.5
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    dev = q.device
+
+    q = q * scale
+    q_pos = torch.arange(S, device=dev)
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32, device=dev)
+    for j in range(S // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        s = _gqa_scores(q, kj)  # (B, KV, G, S, chunk)
+        k_pos = j * chunk + torch.arange(chunk, device=dev)
+        mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(vj.dtype).float(), vj.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return out.to(q.dtype)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+    """Sliding-window attention computing only the diagonal band: each
+    W-sized query block attends to its own and the previous key block.
+
+    Shapes: q (B, S, H, hd); k, v (B, S, KV, hd); S % window == 0.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    W = window
+    if S % W:
+        raise ValueError(f"sequence {S} is not a multiple of the window {W}")
+    nb = S // W
+    scale = hd**-0.5
+    dev = q.device
+
+    qb = (q * scale).reshape(B, nb, W, H, hd)
+    pad = torch.zeros((B, W, KV, hd), dtype=k.dtype, device=dev)
+    kp = torch.cat([pad, k], dim=1).reshape(B, nb + 1, W, KV, hd)
+    vp = torch.cat([pad, v], dim=1).reshape(B, nb + 1, W, KV, hd)
+    kw = torch.cat([kp[:, :-1], kp[:, 1:]], dim=2)  # (B, nb, 2W, KV, hd)
+    vw = torch.cat([vp[:, :-1], vp[:, 1:]], dim=2)
+
+    qg = qb.reshape(B, nb, W, KV, G, hd)
+    s = torch.einsum("bnqkgh,bnskh->bnkgqs", qg.float(), kw.float())  # (B, nb, KV, G, W, 2W)
+    # query i (0..W-1) sits at absolute W + i; key j (0..2W-1) at j; block
+    # 0's first W keys are padding
+    qpos = W + torch.arange(W, device=dev)
+    kpos = torch.arange(2 * W, device=dev)
+    mask = (qpos[:, None] >= kpos[None, :]) & (qpos[:, None] - kpos[None, :] < W)
+    m0 = mask & (kpos[None, :] >= W)
+    full_mask = torch.cat([m0[None], mask.expand(nb - 1, W, 2 * W)], dim=0)
+    s = torch.where(full_mask[None, :, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", p.to(vw.dtype).float(), vw.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B, 1, H, hd); caches: (B, S_c, KV, hd); pos: the current position.
+    For local layers the cache is a rolling buffer of S_c == window slots;
+    slot s holds absolute position  p_s = pos - ((pos - s) mod S_c)  (the
+    newest write wins).  The modulo is a floor modulo: below S_c its
+    operand is negative.
+    """
+    B, Sc, KV, hd = k_cache.shape
+    H = q.shape[2]
+    scale = hd**-0.5
+    s = _gqa_scores(q * scale, k_cache)  # (B, KV, G, 1, Sc)
+    slots = torch.arange(Sc, device=q.device)
+    abs_pos = pos - torch.remainder(pos - slots, Sc)  # absolute position held by slot
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window:
+        valid &= abs_pos > pos - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def reference_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Unchunked oracle for tests."""
+    s = _gqa_scores(q * q.shape[-1] ** -0.5, k)
+    S, Sk = s.shape[-2], s.shape[-1]
+    q_pos = torch.arange(S, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    B, Sq = out.shape[0], out.shape[1]
+    return out.reshape(B, Sq, -1, q.shape[-1]).to(q.dtype)

@@ -899,3 +899,29 @@ def test_calibration_tool_smoke_on_card(card, tmp_path):
     profile = json.loads(out.read_text())
     assert profile["fitted"] is True and profile["version"] == 1
     assert profile["host"].endswith(f":cuda:{torch.cuda.get_device_name(card)}")
+
+
+def test_lm_decode_on_card_matches_cpu(card):
+    """The reduced smollm's forward and token-by-token decode on the card
+    equal the CPU port's in f32 (same weights, moved from the CPU)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models import transformer as ttf
+
+    cfg = dataclasses.replace(reduce_config(registry.get_config("smollm-360m")), dtype="float32")
+    on_cpu = ttf.Transformer(cfg, device="cpu", seed=0)
+    on_card = copy.deepcopy(on_cpu).to(card)
+    tokens = torch.from_numpy(np.random.default_rng(22).integers(0, cfg.vocab, (2, 16)))
+
+    def run(model, ids, dev):
+        with torch.inference_mode():
+            full, _ = ttf.forward(model, ids, cfg)
+            kv = ttf.init_cache(cfg, 2, 16, device=dev)
+            steps = [ttf.serve_step(model, kv, ids[:, t:t + 1], t, cfg)[0] for t in range(16)]
+        return full.cpu(), torch.stack(steps, dim=1).cpu()
+
+    for got, want in zip(run(on_card, tokens.to(card), card), run(on_cpu, tokens, torch.device("cpu"))):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -61,6 +61,12 @@ def test_the_port_has_the_slice_modules():
         "serve/config.py", "serve/coalesce.py", "serve/server.py",
         "serve/loadgen.py", "serve/__init__.py",
         "shard/__init__.py", "shard/plans.py",
+        "configs/__init__.py", "configs/base.py", "configs/registry.py",
+        "configs/reduce.py", "models/common.py", "models/attention.py",
+        "models/moe.py", "models/transformer.py", "models/weights.py",
+        "launch/serve.py",
     } <= names
+    arch_modules = {p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")}
+    assert {f"configs/{m}" for m in arch_modules} <= names
     for source in ("bitmm.cu", "tile_bitmm.cu", "minplus.cu", "count_mm.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / source).exists()
