@@ -82,7 +82,20 @@ gen 16) with its latencies, peak memory, the device operations of one
 decode step (``torch.profiler``), the step's bound and its code's own
 traffic, bf16 decode against forward to 2e-2; the reduced
 configs of the five LM archs, bf16 decode against forward, and the card
-against the CPU port in f32.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
+against the CPU port in f32.  Then LM training (``lm_train``):
+``smollm-360m`` at full width on ``train_4k`` (its sequence cut from 4,096
+to 2,048, its global batch to 8, two microbatches of 4) through
+``train/trainer.py``: 6 steps with f32 moments on one fixed batch (loss,
+gradient norm, ms, tokens/s, mfu, peak memory and the moments' bytes per
+step; the loss must fall), a checkpoint after step 3 restored bit for bit
+into a fresh model and optimizer whose resumed losses and gradient norms
+equal the uninterrupted run's bit for bit, the f32
+products' share of one step's device time (``torch.profiler``), 2 steps
+with int8 moments, and the five reduced configs' train step on the card
+against the CPU port; and DeepFM training (``deepfm_train``): the full
+config (430 M parameters) at a batch of 65,536 for 15 steps, its loss
+falling 5%, examples/s, and the reduced config on the card against the CPU
+port.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
 ``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
@@ -3540,6 +3553,335 @@ def phase_lm_serve(dev) -> None:
     emit("lm_serve", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+# train_4k's sequence of 4,096, cut to 2,048: at 4,096 a step took 8,902 ms
+# and the phase 151.9 s on an H100 80GB HBM3 at 700 W, past its 120 s
+LM_TRAIN_SEQ = 2048
+LM_TRAIN_BATCH, LM_TRAIN_MICRO = 8, 2  # train_4k's global batch 256, cut to 2 microbatches of 4
+LM_TRAIN_STEPS, LM_TRAIN_RESUME_AT, LM_TRAIN_INT8_STEPS = 6, 3, 2
+# device kernels that take a product, by name: cuBLAS/cuBLASLt GEMMs (xmma,
+# nvjet, cutlass, sgemm, gemv); of those, the ones on f32 operands
+PRODUCT_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma|cutlass", re.IGNORECASE)
+F32_PRODUCT_KERNEL = re.compile(r"sgemm|sgemv|f32f32_f32f32|gemm_f32|_s1688|_s16816|simt_s", re.IGNORECASE)
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> dict:
+    """Model FLOPs of one train step of a dense config: 6 x the matmul
+    parameters x tokens (2 for the forward product, 4 for its two backward
+    products; the matmul parameters are every matrix of the blocks and the
+    unembedding: the embedding is a gather, the norm scales are vectors),
+    plus the causal attention: 12 x H x hd per attended (query, key) pair
+    per layer (QK^T and PV, 2 x hd each forward, twice that backward), the
+    pairs of a global layer S (S + 1) / 2 per sequence, of a local one
+    those within the window.  The remat's recomputation and the masked
+    score entries the chunk loop computes are not model FLOPs."""
+    from repro_torch.models import transformer as tf
+
+    if cfg.moe:
+        raise ValueError("the FLOPs of a MoE step depend on the routing")
+    model = tf.Transformer(cfg, device="meta")
+    matmul = sum(p.numel() for name, p in model.named_parameters()
+                 if p.dim() >= 2 and name != "embed")
+    tokens = batch * seq
+    pairs = sum(sum(min(i + 1, cfg.window) for i in range(seq))
+                if cfg.window and cfg.layer_is_local(layer) else seq * (seq + 1) // 2
+                for layer in range(cfg.n_layers))
+    dense, attn = 6 * matmul * tokens, 12 * cfg.n_heads * cfg.hd * pairs * batch
+    return {"matmul_params": matmul, "tokens": tokens, "dense_flops": dense,
+            "attention_flops": attn, "flops": dense + attn}
+
+
+def f32_product_share(step, dev) -> dict:
+    """One step under ``torch.profiler``: the device time of the kernels
+    that take products on f32 operands (by kernel name,
+    ``F32_PRODUCT_KERNEL``: in a bf16 model the attention's scores and
+    weighted sums, the f32 logits and their backward products) and of every
+    product kernel (``PRODUCT_KERNEL``), over the device time of every
+    kernel of the step; the kernels that take the most time, by name, so
+    that the split can be checked."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics = step()
+        torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = Counter()
+    for ev in kernels:
+        us[ev.name] += ev.time_range.elapsed_us()
+    busy = sum(us.values())
+    products = sum(t for n, t in us.items() if PRODUCT_KERNEL.search(n))
+    f32 = sum(t for n, t in us.items() if PRODUCT_KERNEL.search(n) and F32_PRODUCT_KERNEL.search(n))
+    return {"metrics": metrics, "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "kernels": len(kernels), "product_device_ms": products / 1e3,
+            "f32_product_device_ms": f32 / 1e3,
+            "f32_product_share": f32 / busy if busy else None,
+            "product_share": products / busy if busy else None,
+            "top_kernels_ms": {n[:120]: t / 1e3 for n, t in us.most_common(12)}}
+
+
+def leaves(tree, prefix: str = "") -> dict:
+    """``{path: tensor}`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in leaves(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in leaves(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def card_vs_cpu_grads(model_cls, cfg, batch, loss_fn, seed: int, dev, rtol: float, atol: float) -> dict:
+    """``loss_fn`` and its backward on the same weights (drawn on the CPU)
+    on the card and on the CPU: the largest excess of the loss and of every
+    gradient over ``atol + rtol |cpu|`` (at most 0 where they agree)."""
+    import copy
+
+    from repro_torch.train.trainer import to_device
+
+    host = model_cls(cfg, device="cpu", seed=seed)
+    card = copy.deepcopy(host).to(dev)
+    out = {}
+    for name, model, where in (("cpu", host, torch.device("cpu")), ("card", card, dev)):
+        loss, _ = loss_fn(model, to_device(batch, where))
+        loss.backward()
+        out[name] = (loss.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (l_h, g_h), (l_c, g_c) = out["cpu"], out["card"]
+    excess = lm_excess(l_c, l_h, rtol, atol)
+    worst, worst_abs = excess, (l_c - l_h).abs().item()
+    for n in g_h:
+        worst = max(worst, lm_excess(g_c[n], g_h[n], rtol, atol))
+        worst_abs = max(worst_abs, (g_c[n] - g_h[n]).abs().max().item())
+    return {"loss_cpu": l_h.item(), "loss_card": l_c.item(), "leaves": len(g_h),
+            "max_abs": worst_abs, "excess": worst}
+
+
+def phase_lm_train(dev) -> None:
+    """The LM training path of ``repro_torch`` (``train/``, ``loss_fn`` and
+    the remats of ``models/``): ``smollm-360m`` at full width (409,007,040
+    parameters, bf16 activations, f32 weights) on ``train_4k`` with its
+    sequence cut from 4,096 to ``LM_TRAIN_SEQ`` and its global batch from 256
+    to 8, as 2 microbatches of 4, through ``trainer.make_train_step`` on one
+    fixed batch:
+
+    (a) 6 steps with f32 moments, a checkpoint saved after step 3; each
+        step's loss, grad_norm, ms (host clock, ending in a synchronize),
+        tokens/s, mfu (``lm_train_flops`` over the step time at the bf16
+        peak) and the peak memory beside the moments' bytes; every loss and
+        gradient norm finite, and the loss falls;
+    (b) a fresh model and optimizer (other seed) restored from the
+        checkpoint, bit for bit against a host copy taken at the save, then
+        steps 4-6 again: their losses and gradient norms equal the
+        uninterrupted run's bit for bit (no operation of the dense path
+        accumulates into one location in a varying order: the embedding's
+        backward sorts its indices, the NLL's gather touches each location
+        once), so steps 5 and 6 also hold the restored moments; the last
+        step runs under ``torch.profiler`` (the f32 products' share of the
+        device time) and its row is marked ``profiled``;
+    (c) 2 steps with int8 moments from the same start, with their peak
+        memory and moments' bytes;
+    (d) the five LM archs' reduced configs in f32: a train step's loss and
+        every gradient on the card against the CPU port, within 1e-4."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import data, optimizer as opt, trainer
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(LM_ARCH)
+    shape = {s.name: s for s in registry.get_shapes(LM_ARCH)}["train_4k"]
+    check(shape.dim("seq_len") == 4096, f"train_4k: {shape}")
+
+    def timed(step, model, state, batch) -> tuple[dict, float]:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize(dev)
+        return {k: v.item() for k, v in m.items()}, (time.perf_counter() - t0) * 1e3
+
+    def record(run: str, i: int, m: dict, ms: float, state, profiled: bool = False) -> dict:
+        """A step's line; a profiled step's ms is the profiler's wall time,
+        so it gets no tokens/s and no mfu."""
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"{run} step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+        rate = None if profiled else LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3)
+        row = {"run": run, "step": i, "loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
+               "profiled": profiled, "tokens_per_s": rate,
+               "mfu": None if profiled else flops["flops"] / (ms / 1e3) / BF16_OPS_PER_S,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "moment_bytes": opt.moment_bytes(state)}
+        emit("lm_train", part="step", seq=LM_TRAIN_SEQ, **row)
+        return row
+
+    ocfg = opt.OptimizerConfig()
+    step32 = trainer.make_train_step(cfg, ocfg, n_micro=LM_TRAIN_MICRO)
+    batch = data.lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, step=0, n_micro=LM_TRAIN_MICRO)
+    model = tf.Transformer(cfg, device=dev, seed=0)
+    state = opt.init_opt_state(model, ocfg)
+    flops = lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    emit("lm_train", part="config", arch=LM_ARCH, params=sum(p.numel() for p in model.parameters()),
+         seq=LM_TRAIN_SEQ, batch=LM_TRAIN_BATCH, n_micro=LM_TRAIN_MICRO, dtype=cfg.dtype,
+         reduced={"global_batch": [shape.dim("global_batch"), LM_TRAIN_BATCH],
+                  "seq_len": [shape.dim("seq_len"), LM_TRAIN_SEQ]},
+         lr=ocfg.lr, **flops)
+
+    # (a) 6 steps, f32 moments, a checkpoint after step 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(LM_TRAIN_STEPS):
+            if i == LM_TRAIN_RESUME_AT:
+                # the save stacks the tree on the card: its memory is not the step's
+                peak_before = torch.cuda.max_memory_allocated(dev)
+                t0 = time.perf_counter()
+                saved = {k: v.detach().cpu().clone()
+                         for k, v in leaves(ckpt.training_tree(model, state)).items()}
+                path = ckpt.save(tmp, i, ckpt.training_tree(model, state))
+                save_s = time.perf_counter() - t0
+                torch.cuda.reset_peak_memory_stats(dev)
+            m, ms = timed(step32, model, state, batch)
+            rows.append(record("f32", i, m, ms, state))
+        peak32 = max(peak_before, torch.cuda.max_memory_allocated(dev))
+        moments32 = opt.moment_bytes(state)
+        losses = [r["loss"] for r in rows]
+        check(losses[-1] < losses[0], f"the loss did not fall over {LM_TRAIN_STEPS} steps: {losses}")
+        del model, state
+        torch.cuda.empty_cache()
+
+        # (b) restore into a fresh model and optimizer, resume
+        fresh = tf.Transformer(cfg, device=dev, seed=1)
+        fstate = opt.init_opt_state(fresh, ocfg)
+        t0 = time.perf_counter()
+        tree, _ = ckpt.restore(path, ckpt.training_tree(fresh, fstate))
+        ckpt.load_training_tree(tree, fresh, fstate)
+        del tree
+        restore_s = time.perf_counter() - t0
+    got = leaves(ckpt.training_tree(fresh, fstate))
+    check(got.keys() == saved.keys(), "the restored tree has other leaves")
+    unequal = [k for k in saved if not torch.equal(got[k].detach().cpu(), saved[k])]
+    check(not unequal, f"restored leaves differ from the saved ones: {unequal[:5]}")
+    emit("lm_train", part="checkpoint", step=LM_TRAIN_RESUME_AT, leaves=len(saved),
+         bytes=sum(v.numel() * v.element_size() for v in saved.values()), save_s=save_s,
+         restore_s=restore_s, bit_equal=True)
+    del saved, got
+    resumed = []
+    for i in range(LM_TRAIN_RESUME_AT, LM_TRAIN_STEPS):
+        if i < LM_TRAIN_STEPS - 1:
+            resumed.append(record("resumed", i, *timed(step32, fresh, fstate, batch), fstate))
+        else:
+            prof = f32_product_share(lambda: step32(fresh, fstate, batch), dev)
+            m = {k: v.item() for k, v in prof.pop("metrics").items()}
+            resumed.append(record("resumed", i, m, prof["profiled_wall_ms"], fstate, profiled=True))
+    pairs = [(r[k], rows[r["step"]][k]) for r in resumed for k in ("loss", "grad_norm")]
+    emit("lm_train", part="resume", losses=[r["loss"] for r in resumed],
+         uninterrupted=[rows[r["step"]]["loss"] for r in resumed],
+         grad_norms=[r["grad_norm"] for r in resumed],
+         uninterrupted_grad_norms=[rows[r["step"]]["grad_norm"] for r in resumed],
+         max_abs_diff=max(abs(a - b) for a, b in pairs), bit_equal=all(a == b for a, b in pairs))
+    check(all(a == b for a, b in pairs),
+          f"resumed losses or gradient norms differ from the uninterrupted run's: {pairs}")
+    emit("lm_train", part="profile", step=LM_TRAIN_STEPS - 1, **prof)
+    del fresh, fstate
+    torch.cuda.empty_cache()
+
+    # (c) int8 moments from the same start
+    ocfg8 = dataclasses.replace(ocfg, moment_dtype="int8")
+    step8 = trainer.make_train_step(cfg, ocfg8, n_micro=LM_TRAIN_MICRO)
+    model = tf.Transformer(cfg, device=dev, seed=0)
+    state = opt.init_opt_state(model, ocfg8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows8 = [record("int8", i, *timed(step8, model, state, batch), state)
+             for i in range(LM_TRAIN_INT8_STEPS)]
+    peak8, moments8 = torch.cuda.max_memory_allocated(dev), opt.moment_bytes(state)
+    del model, state
+    torch.cuda.empty_cache()
+    steady = [r["ms"] for r in rows[1:]]
+    emit("lm_train", part="summary", seq=LM_TRAIN_SEQ, step_ms_median=statistics.median(steady),
+         tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / (statistics.median(steady) / 1e3),
+         mfu=flops["flops"] / (statistics.median(steady) / 1e3) / BF16_OPS_PER_S,
+         losses_f32=losses, losses_int8=[r["loss"] for r in rows8],
+         peak_bytes_f32=peak32, moment_bytes_f32=moments32,
+         peak_bytes_int8=peak8, moment_bytes_int8=moments8)
+
+    # (d) card vs CPU, reduced configs in f32
+    archs = [a for a, c in registry.ARCHS.items() if isinstance(c, TransformerConfig)]
+    for seed, arch in enumerate(archs):
+        small = dataclasses.replace(reduce_config(registry.get_config(arch)), dtype="float32")
+        small_batch = data.lm_batch(small, 2, 40 if small.window else 24, step=seed)
+        res = card_vs_cpu_grads(tf.Transformer, small, small_batch,
+                                lambda mdl, b, c=small: tf.loss_fn(mdl, b, c), seed, dev, 1e-4, 1e-4)
+        emit("lm_train", part="reduced_card_vs_cpu", arch=arch, tol=1e-4, **res)
+        check(res["excess"] <= 0, f"{arch} reduced f32 train step: card vs CPU past 1e-4")
+    emit("lm_train", part="phase", seconds=time.perf_counter() - t_phase)
+
+
+DEEPFM_ARCH = "deepfm"
+DEEPFM_STEPS = 15
+
+
+def phase_deepfm_train(dev) -> None:
+    """DeepFM training (``models/recsys/deepfm.py`` through
+    ``trainer.make_train_step``): the full config (39 fields x 10^6 rows x
+    dim 10, MLP (400, 400, 400)) at the config's ``train_batch`` of 65,536,
+    AdamW with f32 moments, 15 steps on one fixed batch: each step's loss
+    and ms, examples/s and the peak memory; every loss finite, and the last
+    loss under 0.95 x the first (``tests/test_recsys.py``'s criterion).
+    Then the reduced config's train step on the card against the CPU port:
+    the loss and every gradient within 1e-5."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models.recsys import deepfm
+    from repro_torch.train import data, optimizer as opt, trainer
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(DEEPFM_ARCH)
+    n_batch = {s.name: s for s in registry.get_shapes(DEEPFM_ARCH)}["train_batch"].dim("batch")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    model = deepfm.DeepFM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = opt.OptimizerConfig()
+    state = opt.init_opt_state(model, ocfg)
+    step = trainer.make_train_step(cfg, ocfg)
+    batch = trainer.to_device(data.recsys_batch(cfg, n_batch, step=0), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for i in range(DEEPFM_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        check(np.isfinite(losses[-1]) and np.isfinite(m["grad_norm"].item()),
+              f"deepfm step {i}: loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = statistics.median(times[1:])
+    emit("deepfm_train", part="full_width", arch=DEEPFM_ARCH, params=n_params,
+         param_bytes=n_params * 4, build_s=build_s, batch=n_batch, steps=DEEPFM_STEPS,
+         losses=losses, step_ms=times, step_ms_median=steady,
+         examples_per_s=n_batch / (steady / 1e3), max_memory_allocated=peak,
+         moment_bytes=opt.moment_bytes(state))
+    check(losses[-1] < losses[0] * 0.95, f"deepfm loss did not fall 5%: {losses}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    small = reduce_config(cfg)
+    res = card_vs_cpu_grads(deepfm.DeepFM, small, data.recsys_batch(small, 256, step=1),
+                            lambda mdl, b: deepfm.loss_fn(mdl, b, small), 0, dev, 1e-5, 1e-5)
+    emit("deepfm_train", part="reduced_card_vs_cpu", tol=1e-5, **res)
+    check(res["excess"] <= 0, "deepfm reduced train step: card vs CPU past 1e-5")
+    emit("deepfm_train", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def phase_packing(dev) -> None:
     """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
     (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
@@ -3659,6 +4001,8 @@ def main() -> None:
     opt = phase_opt(dev)
     cal = phase_calibrate(dev)
     phase_lm_serve(dev)
+    phase_lm_train(dev)
+    phase_deepfm_train(dev)
     # launches on the main paths: the earlier phases', the opt phase's and
     # the calibration's
     for more in (opt, cal):

@@ -1,2 +1,2 @@
-"""Drivers of the LM: ``serve`` (prefill a batch of prompts, then decode
-greedily with a KV cache)."""
+"""Drivers of the LM and DeepFM: ``serve`` (prefill a batch of prompts, then
+decode greedily with a KV cache) and ``train`` (the training CLI)."""

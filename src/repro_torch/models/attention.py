@@ -11,6 +11,7 @@ reference's own; ``F.scaled_dot_product_attention`` would change them.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -37,6 +38,11 @@ def chunked_attention(
 
     Shapes: q (B, S, H, hd); k, v (B, S, KV, hd) with H % KV == 0.
     ``window > 0`` restricts to a sliding window (local layers).
+
+    With grad enabled each chunk's step is checkpointed, as the reference
+    checkpoints its scan body: the backward recomputes the chunk's (S, chunk)
+    probabilities instead of keeping them for every chunk, which would
+    bring back the whole S x S score tensor.  The values are the same.
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -49,12 +55,8 @@ def chunked_attention(
 
     q = q * scale
     q_pos = torch.arange(S, device=dev)
-    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32, device=dev)
-    for j in range(S // chunk):
-        kj = k[:, j * chunk:(j + 1) * chunk]
-        vj = v[:, j * chunk:(j + 1) * chunk]
+
+    def body(m, l, acc, kj, vj, j: int):
         s = _gqa_scores(q, kj)  # (B, KV, G, S, chunk)
         k_pos = j * chunk + torch.arange(chunk, device=dev)
         mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
@@ -66,10 +68,21 @@ def chunked_attention(
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
+        l_new = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(vj.dtype).float(), vj.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l_new, acc * corr[..., None] + pv
+
+    remat = torch.is_grad_enabled()
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32, device=dev)
+    for j in range(S // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        if remat:
+            m, l, acc = checkpoint(body, m, l, acc, kj, vj, j, use_reentrant=False)
+        else:
+            m, l, acc = body(m, l, acc, kj, vj, j)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
     return out.to(q.dtype)

@@ -45,6 +45,17 @@ def mlp_params(sizes: tuple[int, ...], *, generator: torch.Generator | None, dev
     ]
 
 
+def to_numpy(node):
+    """A tree of tensors (nested dicts and lists) as numpy arrays; a bf16
+    tensor comes out as its f32 values, which hold it exactly."""
+    if isinstance(node, dict):
+        return {k: to_numpy(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [to_numpy(v) for v in node]
+    t = node.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def mlp_apply(params, x: torch.Tensor, act=F.relu, final_act: bool = False) -> torch.Tensor:
     for i, layer in enumerate(params):
         x = x @ layer["w"] + layer["b"]

@@ -1,16 +1,20 @@
 """Decoder-only LM covering the five transformer archs of the registry (the
-port of the reference's ``models/transformer.py``: its forward and serving
-path).
+port of the reference's ``models/transformer.py``: its forward, training
+loss and serving path).
 
 The layer pattern comes in blocks of ``e`` layers (``_block_counts``): per
 block, ``e`` attention layers, ``e - 1`` dense FFNs and a last FFN or the
 MoE.  ``Transformer`` holds what the reference's ``init_params`` builds, per
 block instead of stacked over blocks (``models/weights.py`` converts between
 the two).  Weights are stored in f32 and cast to the activation dtype at
-each use, as the reference does; they are created without ``requires_grad``
-(serving only).  ``forward`` is a Python loop over blocks; ``serve_step``
-decodes one token against a KV cache of preallocated tensors, written in
-place (local layers keep rolling window caches).
+each use, as the reference does; they are ordinary trainable parameters
+(``prefill_step`` and ``serve_step`` run under ``torch.inference_mode``
+themselves, so serving builds no graph whatever the caller's grad mode).
+``forward`` is a Python loop over blocks, each block recomputed in the
+backward when grad is on
+(the reference's per-block remat); ``loss_fn`` is the training loss;
+``serve_step`` decodes one token against a KV cache of preallocated
+tensors, written in place (local layers keep rolling window caches).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.matrices import resolve_device
@@ -49,8 +54,8 @@ def _act_dtype(cfg: TransformerConfig) -> torch.dtype:
 # ---------------------------------------------------------------------- #
 
 
-def _frozen(params: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in params.items()})
+def _params(params: dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in params.items()})
 
 
 def _zeros(dev, *shape) -> torch.Tensor:
@@ -73,12 +78,12 @@ def _attn_layer_params(cfg: TransformerConfig, gen, dev) -> nn.ParameterDict:
     if cfg.qk_norm:
         p["q_norm"] = _zeros(dev, hd)
         p["k_norm"] = _zeros(dev, hd)
-    return _frozen(p)
+    return _params(p)
 
 
 def _dense_ffn_params(cfg: TransformerConfig, gen, dev) -> nn.ParameterDict:
     d, f = cfg.d_model, cfg.d_ff
-    return _frozen({
+    return _params({
         "norm": _zeros(dev, d),
         "gate": dense_init((d, f), generator=gen, device=dev),
         "up": dense_init((d, f), generator=gen, device=dev),
@@ -96,8 +101,8 @@ class Block(nn.Module):
         self.attn = nn.ModuleList(_attn_layer_params(cfg, gen, dev) for _ in range(e))
         self.dense_ffn = nn.ModuleList(_dense_ffn_params(cfg, gen, dev) for _ in range(e - 1))
         if cfg.moe:
-            self.moe = _frozen(moe_params(cfg.d_model, cfg.moe, generator=gen, device=dev))
-            self.moe_norm = nn.Parameter(_zeros(dev, cfg.d_model), requires_grad=False)
+            self.moe = _params(moe_params(cfg.d_model, cfg.moe, generator=gen, device=dev))
+            self.moe_norm = nn.Parameter(_zeros(dev, cfg.d_model))
         else:
             self.last_ffn = _dense_ffn_params(cfg, gen, dev)
 
@@ -120,12 +125,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         n_blocks, _ = _block_counts(cfg)
 
-        def frozen(t):
-            return nn.Parameter(t, requires_grad=False)
-
-        self.embed = frozen(dense_init((cfg.vocab, cfg.d_model), generator=gen, device=dev, scale=1.0))
-        self.unembed = frozen(dense_init((cfg.d_model, cfg.vocab), generator=gen, device=dev))
-        self.final_norm = frozen(_zeros(dev, cfg.d_model))
+        self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), generator=gen, device=dev, scale=1.0))
+        self.unembed = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), generator=gen, device=dev))
+        self.final_norm = nn.Parameter(_zeros(dev, cfg.d_model))
         self.blocks = nn.ModuleList(Block(cfg, gen, dev) for _ in range(n_blocks))
 
     @property
@@ -220,19 +222,53 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             last_only: bool = False, drop_tokens: bool = False):
     """tokens (B, S) int -> (logits (B, S, vocab) f32, or (B, 1, vocab) with
     ``last_only``; the mean MoE aux loss).  ``drop_tokens`` False (dropless
-    MoE) makes the teacher-forced logits match token-by-token decode."""
+    MoE) makes the teacher-forced logits match token-by-token decode.
+
+    With grad enabled each block is checkpointed: only its input is kept,
+    and the backward runs the block again (the reference's ``jax.checkpoint``
+    with nothing saveable), so activation memory is one block deep."""
     params.check_config(cfg)
     n_blocks, _ = _block_counts(cfg)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
     for bp in params.blocks:
-        x, a = apply_block(bp, x, cfg, drop_tokens)
+        if remat:
+            x, a = checkpoint(apply_block, bp, x, cfg, drop_tokens, use_reentrant=False)
+        else:
+            x, a = apply_block(bp, x, cfg, drop_tokens)
         aux = aux + a
     if last_only:
         x = x[:, -1:]
     return _logits(params, x, cfg), aux / n_blocks
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL of f32 logits over the targets ``>= 0`` (the others
+    are masked out; at least one counts in the denominator)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_head_loss(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Final norm + unembedding + token cross-entropy: the non-block part of
+    the loss, on the hidden states ``x`` (B, S, d)."""
+    return _nll(_logits(params, x, cfg), targets)
+
+
+def loss_fn(params: Transformer, batch, cfg: TransformerConfig):
+    """The training loss of a batch ``{"tokens", "targets"}`` (B, S): the
+    forward with capacity drops, the masked mean NLL of its f32 logits plus
+    ``0.01 * aux``.  Returns ``(loss, {"nll", "aux"})``."""
+    logits, aux = forward(params, batch["tokens"], cfg, drop_tokens=True)
+    nll = _nll(logits, batch["targets"])
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+
+@torch.inference_mode()
 def prefill_step(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """Serving prefill: full-sequence forward, last-token logits (B, vocab),
     with capacity-drop MoE dispatch as the reference's prefill keeps."""
@@ -264,6 +300,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None,
     ]
 
 
+@torch.inference_mode()
 def serve_step(params: Transformer, cache, tokens: torch.Tensor, pos: int, cfg: TransformerConfig):
     """One decode step.  tokens (B, 1); ``pos`` the current position.
 

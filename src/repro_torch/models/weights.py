@@ -1,4 +1,4 @@
-"""The reference's parameter tree <-> a ``Transformer``.
+"""The reference's parameter trees <-> the port's ``Transformer``.
 
 The reference stacks block parameters over blocks: ``blocks["attn"][name]``
 is ``(n_blocks, e, ...)``, ``blocks["dense_ffn"][name]`` ``(n_blocks, e - 1,
@@ -6,6 +6,14 @@ is ``(n_blocks, e, ...)``, ``blocks["dense_ffn"][name]`` ``(n_blocks, e - 1,
 ``(n_blocks, ...)``.  ``params_from_reference`` loads such a tree (nested
 dicts of numpy arrays) into a ``Transformer``, so both packages compute with
 the same values; ``reference_tree`` and ``to_reference`` stack a model back.
+
+The same layout serves any per-parameter mapping (gradients, AdamW moments,
+int8 moments as ``{"q", "scale"}`` pairs): ``reference_tree(model, values)``
+stacks ``values[name]`` for each of the model's parameter names, and
+``unstack_reference(tree, model)`` takes such a tree apart into those names.
+A stacked int8 moment is the reference's own encoding, because the codec's
+scales run along the last axis, which stacking leaves alone.  DeepFM keeps
+its own layout in ``models/recsys/deepfm.py``.
 """
 from __future__ import annotations
 
@@ -15,28 +23,55 @@ import torch
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.matrices import resolve_device
 
+from .common import to_numpy
 from .transformer import Transformer, _block_counts
 
 _STACKED_PER_LAYER = ("attn", "dense_ffn")  # (n_blocks, e or e - 1, ...)
 
 
-def _state_dict(tree, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+def _index(leaf, idx):
+    """``leaf[idx]`` of an array, or of each member of a ``{"q", "scale"}``
+    pair."""
+    if isinstance(leaf, dict):
+        return {k: _index(v, idx) for k, v in leaf.items()}
+    return leaf[idx]
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], dict):
+        return {k: _stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+    if isinstance(leaves[0], np.ndarray):
+        return np.stack(leaves)
+    return torch.stack(leaves)
+
+
+def _unstack_lm(tree, cfg: TransformerConfig) -> dict:
     n_blocks, _ = _block_counts(cfg)
-    state = {name: torch.from_numpy(np.array(tree[name], dtype=np.float32))
-             for name in ("embed", "unembed", "final_norm")}
+    out = {name: tree[name] for name in ("embed", "unembed", "final_norm")}
     for group, leaves in tree["blocks"].items():
-        if not isinstance(leaves, dict):  # moe_norm
+        if group == "moe_norm":
             leaves = {None: leaves}
         for name, arr in leaves.items():
-            arr = np.asarray(arr, dtype=np.float32)
-            if arr.shape[0] != n_blocks:
-                raise ValueError(f"blocks.{group}.{name} has {arr.shape[0]} blocks, want {n_blocks}")
+            lead = arr["q"] if isinstance(arr, dict) else arr
+            if lead.shape[0] != n_blocks:
+                raise ValueError(f"blocks.{group}.{name} has {lead.shape[0]} blocks, want {n_blocks}")
             for b in range(n_blocks):
-                layers = range(arr.shape[1]) if group in _STACKED_PER_LAYER else [None]
+                layers = range(lead.shape[1]) if group in _STACKED_PER_LAYER else [None]
                 for i in layers:
                     key = ".".join(str(s) for s in ("blocks", b, group, i, name) if s is not None)
-                    state[key] = torch.from_numpy(np.array(arr[b] if i is None else arr[b, i]))
-    return state
+                    out[key] = _index(arr, b if i is None else (b, i))
+    return out
+
+
+def unstack_reference(tree, model: Transformer) -> dict:
+    """The reference-layout ``tree`` taken apart into ``{parameter name:
+    leaf}`` for ``model``; the leaves keep their type (numpy arrays, tensors
+    or ``{"q", "scale"}`` pairs)."""
+    return _unstack_lm(tree, model.cfg)
+
+
+def _state_dict(tree, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in _unstack_lm(tree, cfg).items()}
 
 
 def params_from_reference(tree, cfg: TransformerConfig, device="cuda") -> Transformer:
@@ -49,38 +84,36 @@ def params_from_reference(tree, cfg: TransformerConfig, device="cuda") -> Transf
     return model.to(dev)
 
 
-def reference_tree(model: Transformer) -> dict:
-    """The model's tensors stacked as the reference's tree (on its device;
-    on ``meta`` only the shapes)."""
+def reference_tree(model: Transformer, values=None) -> dict:
+    """``values[name]`` for each parameter of ``model`` (default: the
+    parameters themselves), stacked as the reference's tree."""
+    if values is None:
+        values = dict(model.named_parameters())
     cfg = model.cfg
-    _, e = _block_counts(cfg)
+    n_blocks, e = _block_counts(cfg)
     blocks = model.blocks
 
-    def stack(get):
-        return torch.stack([get(bp) for bp in blocks])
+    def stack(fmt):
+        return _stack([values[fmt.format(b=b)] for b in range(n_blocks)])
 
     def per_layer(group, count):
         names = getattr(blocks[0], group)[0].keys()
-        return {n: stack(lambda bp: torch.stack([getattr(bp, group)[i][n] for i in range(count)]))
+        return {n: _stack([_stack([values[f"blocks.{b}.{group}.{i}.{n}"] for i in range(count)])
+                           for b in range(n_blocks)])
                 for n in names}
 
     out = {"attn": per_layer("attn", e)}
     if e > 1:
         out["dense_ffn"] = per_layer("dense_ffn", e - 1)
     if cfg.moe:
-        out["moe"] = {n: stack(lambda bp: bp.moe[n]) for n in blocks[0].moe.keys()}
-        out["moe_norm"] = stack(lambda bp: bp.moe_norm)
+        out["moe"] = {n: stack(f"blocks.{{b}}.moe.{n}") for n in blocks[0].moe.keys()}
+        out["moe_norm"] = stack("blocks.{b}.moe_norm")
     else:
-        out["last_ffn"] = {n: stack(lambda bp: bp.last_ffn[n]) for n in blocks[0].last_ffn.keys()}
-    return {"embed": model.embed, "unembed": model.unembed,
-            "final_norm": model.final_norm, "blocks": out}
+        out["last_ffn"] = {n: stack(f"blocks.{{b}}.last_ffn.{n}") for n in blocks[0].last_ffn.keys()}
+    return {"embed": values["embed"], "unembed": values["unembed"],
+            "final_norm": values["final_norm"], "blocks": out}
 
 
-def to_reference(model: Transformer) -> dict:
+def to_reference(model: Transformer, values=None) -> dict:
     """``reference_tree`` as nested dicts of numpy arrays."""
-    def numpy(node):
-        if isinstance(node, dict):
-            return {k: numpy(v) for k, v in node.items()}
-        return node.detach().cpu().numpy()
-
-    return numpy(reference_tree(model))
+    return to_numpy(reference_tree(model, values))

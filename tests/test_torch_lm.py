@@ -453,7 +453,7 @@ def test_weights_round_trip(cache):
     assert _flat(tree) == _flat(back)
     for leaf, got in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         assert np.array_equal(leaf, got)
-    assert not any(p.requires_grad for p in model.parameters())
+    assert all(p.requires_grad for p in model.parameters())  # ordinary trainable parameters
     blocks = dict(tree["blocks"])
     blocks["moe"] = {k: v for k, v in blocks["moe"].items() if k != "ws_up"}
     with pytest.raises(RuntimeError, match="ws_up"):
