@@ -95,7 +95,16 @@ with int8 moments, and the five reduced configs' train step on the card
 against the CPU port; and DeepFM training (``deepfm_train``): the full
 config (430 M parameters) at a batch of 65,536 for 15 steps, its loss
 falling 5%, examples/s, and the reduced config on the card against the CPU
-port.  ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
+port.  Then GNN training (``gnn_train``): each of the four GNN archs at
+its published width on a registry shape it fits on one card (gcn-cora on
+Cora and on ogb_products' full batch of 61.9 M edges, MeshGraphNet at a
+``minibatch_lg`` sample's size, Equiformer-v2 and MACE on 128 molecules),
+8 AdamW steps on ``gnn_batch`` at that size (loss, gradient norm, ms,
+edges/s, peak memory; the loss must fall), one profiled step (device busy,
+kernels, the gathers' and scatter-adds' share), the model FLOPs, an
+Equiformer-v2 checkpoint restored bit for bit, the E(3) invariance on the
+card, and the reduced configs on the card against the CPU port.
+``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
 ``minplus.cu`` and ``count_mm.cu`` beside it, on the ``minplus_timing`` and
@@ -3590,6 +3599,28 @@ def lm_train_flops(cfg, batch: int, seq: int) -> dict:
             "attention_flops": attn, "flops": dense + attn}
 
 
+def profile_kernels(step, dev):
+    """``step()`` under ``torch.profiler``: its result, the wall ms of the
+    step inside the profiler's window (ending in a synchronize; the
+    profiler's own start and stop are not in it), the device microseconds
+    per kernel name and the number of kernels the profiler reports."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = Counter()
+    for ev in kernels:
+        us[ev.name] += ev.time_range.elapsed_us()
+    return out, wall_ms, us, len(kernels)
+
+
 def f32_product_share(step, dev) -> dict:
     """One step under ``torch.profiler``: the device time of the kernels
     that take products on f32 operands (by kernel name,
@@ -3598,25 +3629,12 @@ def f32_product_share(step, dev) -> dict:
     product kernel (``PRODUCT_KERNEL``), over the device time of every
     kernel of the step; the kernels that take the most time, by name, so
     that the split can be checked."""
-    from collections import Counter
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        metrics = step()
-        torch.cuda.synchronize(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    us = Counter()
-    for ev in kernels:
-        us[ev.name] += ev.time_range.elapsed_us()
+    metrics, wall_ms, us, n_kernels = profile_kernels(step, dev)
     busy = sum(us.values())
     products = sum(t for n, t in us.items() if PRODUCT_KERNEL.search(n))
     f32 = sum(t for n, t in us.items() if PRODUCT_KERNEL.search(n) and F32_PRODUCT_KERNEL.search(n))
     return {"metrics": metrics, "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-            "kernels": len(kernels), "product_device_ms": products / 1e3,
+            "kernels": n_kernels, "product_device_ms": products / 1e3,
             "f32_product_device_ms": f32 / 1e3,
             "f32_product_share": f32 / busy if busy else None,
             "product_share": products / busy if busy else None,
@@ -3882,6 +3900,243 @@ def phase_deepfm_train(dev) -> None:
     emit("deepfm_train", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+# the rows of gnn_train: each arch at its published width on the registry
+# shape (GNN_SHAPES) it fits on one card
+GNN_ROWS = (
+    ("gcn-cora", "full_graph_sm"),
+    ("gcn-cora", "ogb_products"),
+    ("meshgraphnet", "minibatch_lg"),
+    ("equiformer-v2", "molecule"),
+    ("mace", "molecule"),
+)
+GNN_TRAIN_STEPS = 8
+# device kernels that move rows by an index: gathers (index_select and its
+# kin) and scatter-adds (index_add's indexFunc, scatter_reduce, index_put);
+# a kernel that matches both is counted as a scatter
+GATHER_KERNEL = re.compile(r"indexSelect|index_select|gather", re.IGNORECASE)
+SCATTER_KERNEL = re.compile(r"indexFunc|index_add|index_put|scatter_add|scatter_reduce|Reduce(Add|Maximum)",
+                            re.IGNORECASE)
+
+
+def gnn_row_size(shape) -> tuple[int, int, int]:
+    """(nodes, edges, d_feat) of a ``GNN_SHAPES`` entry: a full graph as
+    it is, a sampled one at ``sampled_sizes(batch_nodes, fanouts)`` (as the
+    dry run sizes it), a batch of small graphs flattened."""
+    from repro_torch.models.gnn.common import sampled_sizes
+
+    d = dict(shape.dims)
+    if shape.kind == "graph_full":
+        return d["n_nodes"], d["n_edges"], d["d_feat"]
+    if shape.kind == "graph_sampled":
+        n, e = sampled_sizes(d["batch_nodes"], (d["fanout1"], d["fanout2"]))
+        return n, e, d["d_feat"]
+    if shape.kind == "graph_batched":
+        return d["n_nodes"] * d["batch"], d["n_edges"] * d["batch"], d["d_feat"]
+    raise ValueError(shape)
+
+
+def gnn_train_flops(model, batch, cfg) -> int:
+    """Model FLOPs of one train step, counted from the code's products and
+    einsums (``torch.utils.flop_counter``: matmuls, batched matmuls and the
+    einsums they carry, forward and backward) on one forward and backward
+    of ``batch``; the gradients are dropped afterwards."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.gnn import api
+
+    with FlopCounterMode(display=False) as counter:
+        loss, _ = api.loss_fn(model, batch, cfg)
+        loss.backward()
+    for p in model.parameters():
+        p.grad = None
+    return counter.get_total_flops()
+
+
+def rotated_batch(batch, seed: int):
+    """``batch`` with its positions turned by a random proper rotation and
+    moved by 1.5 along every axis."""
+    rng = np.random.default_rng(seed)
+    a = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    if np.linalg.det(a) < 0:
+        a[:, 0] = -a[:, 0]
+    pos = batch["positions"]
+    return dict(batch, positions=pos @ torch.as_tensor(a.T, dtype=pos.dtype, device=pos.device) + 1.5)
+
+
+def invariance_error(model, batch, cfg, seed: int) -> dict:
+    """The readout against the readout of the rotated and moved batch: the
+    largest absolute difference and the largest excess over rtol 1e-3 and
+    atol 1e-4 (at most 0 where they agree)."""
+    from repro_torch.models.gnn import api
+
+    with torch.no_grad():
+        out = api.forward(model, batch, cfg)
+        out_rot = api.forward(model, rotated_batch(batch, seed), cfg)
+    check(bool(torch.isfinite(out).all()), f"{cfg.arch_id}: non-finite readout")
+    return {"max_abs": (out_rot - out).abs().max().item(), "excess": lm_excess(out_rot, out, 1e-3, 1e-4),
+            "out_abs_max": out.abs().max().item()}
+
+
+def phase_gnn_train(dev) -> None:
+    """GNN training (``models/gnn/`` through ``trainer.make_train_step``):
+    each row of ``GNN_ROWS`` at the arch's published width, uncut, on
+    ``gnn_batch`` at its registry shape's size (``gnn_row_size``), 8 AdamW
+    steps with f32 moments on that one batch, moved to the card once.
+    Each step prints its loss, grad_norm, ms (host clock, ending in a
+    synchronize), edges/s, the peak memory and the moments' bytes; the
+    last step runs under ``torch.profiler`` (device-busy ms against wall
+    ms, the kernel count, the top kernels, the gathers' and scatter-adds'
+    share) and is marked ``profiled``; the model FLOPs of a step
+    (``gnn_train_flops``) over the median step time at the f32 peak.
+    Every loss and gradient norm must be finite and the loss must fall
+    over the 8 steps.  Equiformer-v2's row also times ``wigner_stack`` at
+    l_max 6 on its edges, and checkpoints its training tree after the
+    steps, restored bit for bit into a fresh model and optimizer; it and
+    MACE print their full-width readout's E(3) invariance error (rotation
+    plus translation) as a number.  Then the four reduced configs' train
+    step on the card against the CPU port (loss and every gradient within
+    1e-4), and the E(3) invariance of Equiformer-v2 and MACE on the card at
+    the reference test's shape (2 layers, width 8, 2 heads, the full l_max
+    and m_max; rtol 1e-3, atol 1e-4)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models.gnn import api, so3
+    from repro_torch.train import data, optimizer as opt, trainer
+
+    t_phase = time.perf_counter()
+    for arch, shape_name in GNN_ROWS:
+        t_row = time.perf_counter()
+        cfg = registry.get_config(arch)
+        shape = {s.name: s for s in registry.get_shapes(arch)}[shape_name]
+        n, e, d_feat = gnn_row_size(shape)
+        t0 = time.perf_counter()
+        host = data.gnn_batch(cfg, n=n, e=e, d_feat=d_feat, step=0)
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = trainer.to_device(host, dev)
+        torch.cuda.synchronize(dev)
+        h2d_s = time.perf_counter() - t0
+        batch_bytes = sum(v.nbytes for v in host.values())
+        del host
+        model = api.GNN(cfg, d_feat, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        ocfg = opt.OptimizerConfig()
+        state = opt.init_opt_state(model, ocfg)
+        step = trainer.make_train_step(cfg, ocfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows = []
+        for i in range(GNN_TRAIN_STEPS):
+            profiled = i == GNN_TRAIN_STEPS - 1
+            if profiled:
+                m, ms, us, n_kernels = profile_kernels(lambda: step(model, state, batch), dev)
+            else:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                m = step(model, state, batch)
+                torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            m = {k: v.item() for k, v in m.items()}
+            check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                  f"{arch}/{shape_name} step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+            row = {"step": i, "loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
+                   "profiled": profiled, "edges_per_s": None if profiled else e / (ms / 1e3),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                   "moment_bytes": opt.moment_bytes(state)}
+            emit("gnn_train", part="step", arch=arch, shape=shape_name, **row)
+            rows.append(row)
+        losses = [r["loss"] for r in rows]
+        check(losses[-1] < losses[0], f"{arch}/{shape_name}: the loss did not fall over "
+              f"{GNN_TRAIN_STEPS} steps: {losses}")
+        flops = gnn_train_flops(model, batch, cfg)
+        steady = statistics.median(r["ms"] for r in rows[1:-1])
+        busy = sum(us.values())
+        gathers = sum(t for k, t in us.items() if GATHER_KERNEL.search(k) and not SCATTER_KERNEL.search(k))
+        scatters = sum(t for k, t in us.items() if SCATTER_KERNEL.search(k))
+        extra = {}
+        if cfg.model == "equiformer_v2":
+            # the Wigner assembly on this batch's edges: its device time
+            # and launches (eager: one small expression per matrix entry)
+            vec = batch["positions"][batch["edge_dst"].long()] - batch["positions"][batch["edge_src"].long()]
+            R = so3.rotation_to_z(vec)
+            _, wig_ms, wig_us, wig_kernels = profile_kernels(lambda: so3.wigner_stack(R, cfg.l_max), dev)
+            extra["wigner"] = {"edges": e, "l_max": cfg.l_max, "wall_ms": wig_ms,
+                               "device_busy_ms": sum(wig_us.values()) / 1e3, "kernels": wig_kernels,
+                               "ms": time_ms(lambda: so3.wigner_stack(R, cfg.l_max), reps=5)}
+            del vec, R
+            extra["checkpoint"] = gnn_checkpoint_round_trip(model, state, cfg, d_feat, dev)
+        if cfg.model in ("equiformer_v2", "mace"):
+            extra["invariance_full_width"] = invariance_error(model, batch, cfg, seed=7)
+        emit("gnn_train", part="row", arch=arch, shape=shape_name, params=n_params,
+             nodes=n, edges=e, d_feat=d_feat, batch_bytes=batch_bytes, batch_s=batch_s, h2d_s=h2d_s,
+             steps=GNN_TRAIN_STEPS, losses=losses, step_ms_median=steady,
+             edges_per_s=e / (steady / 1e3),
+             peak_bytes=max(r["max_memory_allocated"] for r in rows),
+             moment_bytes=opt.moment_bytes(state), flops=flops,
+             flop_share=flops / (steady / 1e3) / FP32_OPS_PER_S,
+             profile={"step": GNN_TRAIN_STEPS - 1, "wall_ms": rows[-1]["ms"], "device_busy_ms": busy / 1e3,
+                      "busy_share": busy / 1e3 / rows[-1]["ms"],
+                      "busy_over_median_step": busy / 1e3 / steady, "kernels": n_kernels,
+                      "gather_ms": gathers / 1e3, "gather_share": gathers / busy if busy else None,
+                      "scatter_ms": scatters / 1e3, "scatter_share": scatters / busy if busy else None,
+                      "top_kernels_ms": {k[:120]: t / 1e3 for k, t in us.most_common(10)}},
+             row_s=time.perf_counter() - t_row, **extra)
+        del model, state, batch, step
+        torch.cuda.empty_cache()
+
+    # the reduced configs: one train step, card against the CPU port
+    for seed, arch in enumerate(dict.fromkeys(a for a, _ in GNN_ROWS)):
+        small = reduce_config(registry.get_config(arch))
+        res = card_vs_cpu_grads(functools.partial(api.GNN, d_feat=16), small,
+                                data.gnn_batch(small, n=256, e=1024, d_feat=16, step=seed),
+                                lambda mdl, b, c=small: api.loss_fn(mdl, b, c), seed, dev, 1e-4, 1e-4)
+        emit("gnn_train", part="reduced_card_vs_cpu", arch=arch, tol=1e-4, **res)
+        check(res["excess"] <= 0, f"{arch} reduced train step: card vs CPU past 1e-4")
+    # E(3) invariance at the reference test's shape
+    for arch in ("equiformer-v2", "mace"):
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=2, d_hidden=8, n_heads=2)
+        model = api.GNN(cfg, 12, device=dev, seed=1)
+        batch = trainer.to_device(data.gnn_batch(cfg, n=12, e=36, d_feat=12, step=1), dev)
+        res = invariance_error(model, batch, cfg, seed=1)
+        emit("gnn_train", part="invariance", arch=arch, l_max=cfg.l_max, m_max=cfg.m_max,
+             rtol=1e-3, atol=1e-4, **res)
+        check(res["excess"] <= 0, f"{arch}: the readout is not E(3)-invariant on the card")
+    emit("gnn_train", part="phase", seconds=time.perf_counter() - t_phase)
+
+
+def gnn_checkpoint_round_trip(model, state, cfg, d_feat: int, dev) -> dict:
+    """The training tree of ``model`` and ``state`` saved, then restored
+    into a fresh model (another seed) and optimizer: every leaf must equal
+    a host copy taken at the save, bit for bit."""
+    import tempfile
+
+    from repro_torch.models.gnn import api
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+
+    saved = {k: v.detach().cpu().clone() for k, v in leaves(ckpt.training_tree(model, state)).items()}
+    fresh = api.GNN(cfg, d_feat, device=dev, seed=1)
+    fstate = opt.init_opt_state(fresh, opt.OptimizerConfig())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp, GNN_TRAIN_STEPS, ckpt.training_tree(model, state))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, _ = ckpt.restore(path, ckpt.training_tree(fresh, fstate))
+        ckpt.load_training_tree(tree, fresh, fstate)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+    got = leaves(ckpt.training_tree(fresh, fstate))
+    check(got.keys() == saved.keys(), "the restored GNN tree has other leaves")
+    unequal = [k for k in saved if not torch.equal(got[k].detach().cpu(), saved[k])]
+    check(not unequal, f"restored GNN leaves differ from the saved ones: {unequal[:5]}")
+    return {"param_leaves": sum(1 for _ in fresh.parameters()), "leaves": len(saved),
+            "bytes": sum(v.numel() * v.element_size() for v in saved.values()),
+            "save_s": save_s, "restore_s": restore_s, "bit_equal": True}
+
+
 def phase_packing(dev) -> None:
     """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
     (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
@@ -4003,6 +4258,7 @@ def main() -> None:
     phase_lm_serve(dev)
     phase_lm_train(dev)
     phase_deepfm_train(dev)
+    phase_gnn_train(dev)
     # launches on the main paths: the earlier phases', the opt phase's and
     # the calibration's
     for more in (opt, cal):

@@ -16,7 +16,8 @@ boolean flag (on by default; ``--no-reduced`` trains the full config):
 
 Parameters are drawn from a ``torch.Generator`` seeded with 0, as the
 reference driver seeds its parameters with ``PRNGKey(0)``.
-The LM and DeepFM families train; a GNN arch exits naming its ROADMAP item.
+The LM, GNN and DeepFM families train (a GNN on a random graph of 256
+nodes and 1,024 edges with 16 features, as the reference driver draws it).
 """
 from __future__ import annotations
 
@@ -78,7 +79,13 @@ def main(argv: list[str] | None = None) -> int:
             return data.recsys_batch(cfg, args.batch, step)
 
     elif isinstance(cfg, GNNConfig):
-        raise SystemExit(f"--arch {args.arch}: the GNN family is not ported yet (ROADMAP.md item 12d)")
+        from repro_torch.models.gnn.api import GNN
+
+        model = GNN(cfg, d_feat=16, device=dev, seed=0)
+
+        def batch_fn(step):
+            return data.gnn_batch(cfg, n=256, e=1024, d_feat=16, step=step)
+
     else:
         raise SystemExit(f"--arch {args.arch} is not trainable (use benchmarks for cfpq)")
 

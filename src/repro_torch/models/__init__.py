@@ -1,3 +1,3 @@
-"""The LM's modules as torch ops: shared blocks, attention, MoE, the
-transformer and its weight loader (the reference's ``models/`` minus the
-GNN and recsys families, which have not been ported yet)."""
+"""The reference's ``models/`` as torch ops: shared blocks, attention, MoE,
+the transformer and its weight loader, the recommender (``recsys``) and the
+GNN family (``gnn``)."""

@@ -47,7 +47,10 @@ def mlp_params(sizes: tuple[int, ...], *, generator: torch.Generator | None, dev
 
 def to_numpy(node):
     """A tree of tensors (nested dicts and lists) as numpy arrays; a bf16
-    tensor comes out as its f32 values, which hold it exactly."""
+    tensor comes out as its f32 values, which hold it exactly, and a
+    ``None`` leaf stays ``None``."""
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: to_numpy(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):

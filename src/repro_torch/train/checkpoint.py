@@ -17,7 +17,8 @@ leaf to its template's dtype, which gives back the same bits.
 ``training_tree`` and ``load_training_tree`` lay a model and its optimizer
 state out as the reference's ``{"params": ..., "opt": ...}`` tree, in the
 model family's own layout (``models/weights.py`` for the ``Transformer``,
-``models/recsys/deepfm.py`` for ``DeepFM``).
+``models/recsys/deepfm.py`` for ``DeepFM``, ``models/gnn/api.py`` for the
+``GNN``).
 """
 from __future__ import annotations
 
@@ -30,12 +31,16 @@ import numpy as np
 import torch
 
 from repro_torch.models import weights
+from repro_torch.models.gnn import api as gnn
 from repro_torch.models.recsys import deepfm
 
 
 def _flatten(tree, prefix: str = "") -> dict:
     """``{key path: leaf}`` with the reference's key strings: ``['name']``
-    for a dict key, ``[i]`` for a list index."""
+    for a dict key, ``[i]`` for a list index; a ``None`` leaf is an empty
+    subtree, as in JAX."""
+    if tree is None:
+        return {}
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -50,6 +55,8 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 
 def _unflatten(template, values: dict, prefix: str = ""):
+    if template is None:
+        return None
     if isinstance(template, dict):
         return {k: _unflatten(v, values, f"{prefix}[{k!r}]") for k, v in template.items()}
     if isinstance(template, (list, tuple)):
@@ -148,6 +155,8 @@ def _layout(model):
     mapping to the reference's tree, and back."""
     if isinstance(model, deepfm.DeepFM):
         return deepfm.reference_tree, deepfm.unstack_reference
+    if isinstance(model, gnn.GNN):
+        return lambda values: gnn.reference_tree(model, values), gnn.unstack_reference
     return (lambda values: weights.reference_tree(model, values),
             lambda tree: weights.unstack_reference(tree, model))
 

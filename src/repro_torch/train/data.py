@@ -7,7 +7,7 @@ restarted run replays the same sequence with no reader state to persist
 ``zlib.crc32`` of the arch id, which every process computes alike; the
 reference hashes the id with ``hash``, which Python salts per process, so
 its batches change from one process to the next.  Past that the formula is
-the reference's.  ``gnn_batch`` waits for the GNN family's port.
+the reference's.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import zlib
 
 import numpy as np
 
-from repro_torch.configs.base import RecSysConfig, TransformerConfig
+from repro_torch.configs.base import GNNConfig, RecSysConfig, TransformerConfig
+from repro_torch.models.gnn.dims import D_OUT
 
 
 def _rng(arch_id: str, step: int) -> np.random.Generator:
@@ -38,6 +39,33 @@ def lm_batch(cfg: TransformerConfig, batch: int, seq: int, step: int, n_micro: i
             raise ValueError(f"batch {batch} does not split into {n_micro} microbatches")
         b = {k: v.reshape(n_micro, batch // n_micro, seq) for k, v in b.items()}
     return b
+
+
+def gnn_batch(cfg: GNNConfig, n: int, e: int, d_feat: int, step: int):
+    """A random graph of ``n`` nodes and ``e`` edges (uniform endpoints, so
+    self-loops and repeats occur) in the GNN batch layout
+    (``models/gnn/api.py``): normal positions and features, the edges'
+    relative positions and lengths, every node and edge valid, class
+    labels and normal regression targets."""
+    rng = _rng(cfg.arch_id, step)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    rel = pos[dst] - pos[src]
+    d_out = D_OUT.get(cfg.model) or 1
+    return {
+        "node_feat": rng.normal(size=(n, d_feat)).astype(np.float32),
+        "positions": pos,
+        "edge_src": src,
+        "edge_dst": dst,
+        "edge_feat": np.concatenate(
+            [rel, np.linalg.norm(rel, axis=1, keepdims=True)], axis=1
+        ).astype(np.float32),
+        "node_mask": np.ones(n, np.float32),
+        "edge_mask": np.ones(e, np.float32),
+        "labels": rng.integers(0, cfg.n_classes, n).astype(np.int32),
+        "targets": rng.normal(size=(n, d_out)).astype(np.float32),
+    }
 
 
 def recsys_batch(cfg: RecSysConfig, batch: int, step: int):

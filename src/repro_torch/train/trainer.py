@@ -24,8 +24,9 @@ def make_loss_fn(model_cfg):
 
         return lambda model, batch: tf.loss_fn(model, batch, model_cfg)
     if isinstance(model_cfg, GNNConfig):
-        raise NotImplementedError(
-            f"{model_cfg.arch_id}: the GNN family is not ported yet (ROADMAP.md item 12d)")
+        from repro_torch.models.gnn import api
+
+        return lambda model, batch: api.loss_fn(model, batch, model_cfg)
     if isinstance(model_cfg, RecSysConfig):
         from repro_torch.models.recsys import deepfm
 
@@ -43,7 +44,8 @@ def make_train_step(model_cfg, opt_cfg: opt.OptimizerConfig, n_micro: int = 1):
     ``model`` (in place) and ``opt_state`` on ``batch`` (numpy arrays or
     tensors, moved to the model's device).  The metrics are 0-d tensors:
     ``loss`` and ``grad_norm`` (before clipping), plus the loss's ``nll``
-    and ``aux`` (LM) or ``bce`` (DeepFM) when ``n_micro == 1``; with
+    and ``aux`` (LM), ``bce`` (DeepFM), ``nll`` (GCN) or ``mse`` (the other
+    GNNs) when ``n_micro == 1``; with
     microbatches the loss is the mean of theirs."""
     loss_fn = make_loss_fn(model_cfg)
 

@@ -81,6 +81,8 @@ def test_the_port_has_the_slice_modules():
         "launch/serve.py", "launch/train.py",
         "train/optimizer.py", "train/data.py", "train/checkpoint.py", "train/trainer.py",
         "models/recsys/deepfm.py",
+        "models/gnn/common.py", "models/gnn/so3.py", "models/gnn/simple.py",
+        "models/gnn/mace.py", "models/gnn/equiformer_v2.py", "models/gnn/api.py",
     } <= names
     arch_modules = {p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")}
     assert {f"configs/{m}" for m in arch_modules} <= names

@@ -499,8 +499,18 @@ def test_microbatched_step_gradients_equal_the_full_batch(monkeypatch):
 
 
 def test_make_loss_fn_refuses_the_gnn_family():
-    with pytest.raises(NotImplementedError, match="12d"):
-        trainer.make_loss_fn(registry.get_config("gcn-cora"))
+    """The GNN family is no longer refused: a ``GNNConfig`` goes to the GNN
+    loss (``tests/test_torch_gnn.py`` holds it against the reference); a
+    config of no trainable family still is."""
+    from repro_torch.models.gnn import api as gnn_api
+
+    cfg = reduce_config(registry.get_config("gcn-cora"))
+    model = gnn_api.GNN(cfg, 16, device="cpu", seed=0)
+    batch = trainer.to_device(tdata.gnn_batch(cfg, 32, 64, 16, step=0), "cpu")
+    loss, metrics = trainer.make_loss_fn(cfg)(model, batch)
+    assert metrics.keys() == {"nll"} and torch.equal(loss, gnn_api.loss_fn(model, batch, cfg)[0])
+    with pytest.raises(TypeError):
+        trainer.make_loss_fn(registry.get_config("cfpq"))
 
 
 def _run(model, state, step_fn, cfg, start: int, stop: int):
@@ -706,8 +716,8 @@ def test_train_driver_flags_stragglers_and_trains_deepfm(capsys, monkeypatch):
         "[train] done",
     ]
     assert all(STEP_LINE.fullmatch(lines[i]) for i in (0, 1, 3))
-    with pytest.raises(SystemExit, match="12d"):
-        launch_train.main(["--arch", "gcn-cora", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not trainable"):
+        launch_train.main(["--arch", "cfpq", "--device", "cpu"])
     assert launch_train.parse_args(["--no-reduced"]).reduced is False
     assert launch_train.parse_args([]).reduced is True and launch_train.parse_args([]).device == "cuda"
 
