@@ -103,7 +103,17 @@ Cora and on ogb_products' full batch of 61.9 M edges, MeshGraphNet at a
 edges/s, peak memory; the loss must fall), one profiled step (device busy,
 kernels, the gathers' and scatter-adds' share), the model FLOPs, an
 Equiformer-v2 checkpoint restored bit for bit, the E(3) invariance on the
-card, and the reduced configs on the card against the CPU port.
+card, and the reduced configs on the card against the CPU port.  Last, the
+sharded LM (``lm_sharded``): ``smollm-360m`` at full width and depth in the
+one-rank NCCL world, its sharded train step held to the unsharded one
+(loss rtol 1e-5, parameters 5e-4 / 1e-5) and its checkpoint restored bit
+for bit; then a 2 x 2 gloo world of four spawned processes on the card
+with CUDA tensors: ``smollm-360m`` at full width ("seq" attention, the
+vocabulary over ``model``, FSDP over ``data``; 2 blocks) and the reduced
+MoE arch held to their unsharded steps, the int8 compressed all-reduce of
+real gradients within its one-shot bound, the checkpoint restored on a
+1 x 4 mesh bit for bit; per rank step ms, the bytes each collective sent
+per step and peak memory.
 ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
@@ -120,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2929,6 +2940,14 @@ def opt_mesh(dev):
     return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
 
 
+def exchange_words() -> dict:
+    """4-byte words each exchange sent (``shard.exchanged`` counts bytes;
+    the ``opt`` exchanges move int32 words or f32 lengths)."""
+    from repro_torch.shard import plans
+
+    return {k: v // 4 for k, v in plans.exchanged.items()}
+
+
 def per_iteration(words: dict, calls: dict) -> dict:
     """Words each exchange sent per closure iteration (``any_world`` runs
     once an iteration)."""
@@ -2999,7 +3018,7 @@ def phase_opt(dev) -> dict:
             out = closure.opt_closure(T0, tables, plan=p)
             if p is None:
                 return out, {}
-            calls, words = dict(shard.exchange_calls), dict(shard.exchanged)
+            calls, words = dict(shard.exchange_calls), exchange_words()
             return out.full(), per_iteration(words, calls) | {
                 "iterations": calls.get("any_world", 0)}
 
@@ -3042,9 +3061,9 @@ def phase_opt(dev) -> dict:
             "host_copy_ms": span_ms(eng.tracer, first, "closure.host_copy"),
             "launches": {k: launches[k] for k in total},
             "iterations": shard.exchange_calls.get("any_world", 0),
-            "exchange_words": dict(shard.exchanged),
+            "exchange_words": exchange_words(),
             "exchange_words_per_iteration": per_iteration(
-                shard.exchanged, shard.exchange_calls),
+                exchange_words(), shard.exchange_calls),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
         }
 
@@ -4137,6 +4156,429 @@ def gnn_checkpoint_round_trip(model, state, cfg, d_feat: int, dev) -> dict:
             "save_s": save_s, "restore_s": restore_s, "bit_equal": True}
 
 
+# ---------------------------------------------------------------------- #
+# lm_sharded: the sharded LM on torch.distributed
+# ---------------------------------------------------------------------- #
+
+LM_SHARDED_BATCH, LM_SHARDED_SEQ, LM_SHARDED_STEPS = 8, 512, 2
+#: part 2 puts four ranks on the one card: smollm-360m's 32 blocks cut to 2
+LM_SHARDED_BLOCKS = 2
+LM_SHARDED_WORLD, LM_SHARDED_RESTORE = (2, 2), (1, 4)
+LM_SHARDED_MOE_ARCH, LM_SHARDED_MOE_SEQ = "qwen3-moe-235b-a22b", 32
+LM_SHARDED_DEADLINE_S = 240  # part 2's world, from its spawn to its last rank's exit
+#: the reference's sharded-step test: loss rtol 1e-5, parameters 5e-4 / 1e-5;
+#: the gradient norm as the loss, and the f32 moments (which move with any
+#: gradient off by a constant factor, as AdamW's update barely does) within
+#: rtol 5e-4 and atol 1e-4 of the leaf's largest magnitude, as the CPU tests
+LM_SHARDED_TOL = {"loss_rtol": 1e-5, "rtol": 5e-4, "atol": 1e-5, "moment_rtol": 5e-4,
+                  "moment_atol_share": 1e-4}
+#: the compressed all-reduce's error over max|g| / 127: rounding to the
+#: shared scale errs by at most half a code step, so at most 0.5, and the
+#: f32 sums of the exact mean add about 1e-5 of it
+LM_SHARDED_COMPRESSED_LIMIT = 0.5 + 1e-3
+#: the grouped MoE check: the router's pull to expert 0 (so that each group
+#: drops tokens), and test (c)'s tolerance
+LM_SHARDED_MOE_SKEW, LM_SHARDED_MOE_TOL = 0.3, {"rtol": 1e-5, "atol": 1e-6}
+
+
+def hold_sharded(cfg, batch, plan, model, steps: int, dev) -> tuple[dict, object, dict]:
+    """``steps`` AdamW steps (f32 moments) of the port's unsharded train
+    step on ``model`` and of the sharded one on a copy cut to this rank's
+    blocks under ``plan``, on the same global batch: per step both losses,
+    gradient norms and ms (host clock ending in a synchronize), each run's
+    peak memory, the bytes each collective call site sent per sharded
+    step, and the largest excess of the losses, of the gradient norms, of
+    this rank's parameter blocks and of its blocks of both moments over
+    ``LM_SHARDED_TOL`` (at most 0 where they agree).  Returns the row, the
+    sharded model and its optimizer state."""
+    import copy
+
+    from repro_torch.models.weights import named_specs, shard_model
+    from repro_torch.shard import plans
+    from repro_torch.shard.plans import local_shard
+    from repro_torch.train import optimizer as opt, trainer
+
+    ocfg = opt.OptimizerConfig()
+    sharded = shard_model(copy.deepcopy(model), plan)
+    runs = {}
+    for name, mdl, p in (("plain", model, None), ("sharded", sharded, plan)):
+        step = trainer.make_train_step(cfg, ocfg, plan=p)
+        state = opt.init_opt_state(mdl, ocfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # what is resident before the run: both models, and this run's moments
+        resident = torch.cuda.memory_allocated(dev)
+        plans.reset_exchanges()
+        losses, norms, ms = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            m = step(mdl, state, batch)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+        if name == "plain":  # its moments wait on the host, so that the sharded run's memory is its own
+            state = {k: {n: t.cpu() for n, t in state[k].items()} for k in ("m", "v")}
+        runs[name] = {"losses": losses, "norms": norms, "ms": ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev), "resident_bytes": resident,
+                      "state": state}
+        del state
+    sent = {k: v / steps for k, v in sorted(plans.exchanged.items())}
+    calls = {k: v / steps for k, v in sorted(plans.exchange_calls.items())}
+    tol = LM_SHARDED_TOL
+    specs = named_specs(cfg, plan)
+    whole = dict(model.named_parameters())
+    param_excess = max(
+        lm_excess(p.detach(), local_shard(whole[n].detach(), specs[n], plan), tol["rtol"], tol["atol"])
+        for n, p in sharded.named_parameters())
+
+    def moment_excess(key):
+        worst = -float("inf")
+        for n, got in runs["sharded"]["state"][key].items():
+            want = local_shard(runs["plain"]["state"][key][n], specs[n], plan).to(got.device)
+            atol = tol["moment_atol_share"] * runs["plain"]["state"][key][n].abs().max().item()
+            worst = max(worst, lm_excess(got, want, tol["moment_rtol"], atol))
+        return worst
+
+    def scalar_excess(key):
+        return max(abs(a - b) - tol["loss_rtol"] * abs(b)
+                   for a, b in zip(runs["sharded"][key], runs["plain"][key]))
+
+    m_excess, v_excess = moment_excess("m"), moment_excess("v")
+    runs["plain"]["state"] = None  # of the plain run only the numbers above are kept
+    row = {"mode": plan.attn_mode(cfg.n_heads, cfg.hd, False),
+           "losses": runs["sharded"]["losses"], "plain_losses": runs["plain"]["losses"],
+           "grad_norms": runs["sharded"]["norms"], "plain_grad_norms": runs["plain"]["norms"],
+           "step_ms": runs["sharded"]["ms"], "plain_step_ms": runs["plain"]["ms"],
+           "peak_bytes": runs["sharded"]["peak_bytes"], "plain_peak_bytes": runs["plain"]["peak_bytes"],
+           "resident_bytes": runs["sharded"]["resident_bytes"],
+           "plain_resident_bytes": runs["plain"]["resident_bytes"],
+           "sent_bytes_per_step": sent, "calls_per_step": calls,
+           "loss_excess": scalar_excess("losses"), "grad_norm_excess": scalar_excess("norms"),
+           "param_excess": param_excess, "m_excess": m_excess, "v_excess": v_excess, "tol": tol}
+    return row, sharded, runs["sharded"]["state"]
+
+
+SHARDED_EXCESSES = ("loss_excess", "grad_norm_excess", "param_excess", "m_excess", "v_excess")
+
+
+def sharded_agrees(row: dict) -> bool:
+    """Whether every excess of a ``hold_sharded`` row is at most 0."""
+    return all(row[k] <= 0 for k in SHARDED_EXCESSES)
+
+
+def _blocks_match(tree, specs, plan, saved: dict) -> bool:
+    """Whether every leaf of ``tree`` (a rank's blocks) is its block, under
+    its spec, of the stored array of the same key, bit for bit."""
+    from repro_torch.shard.plans import local_shard
+    from repro_torch.train import checkpoint as ckpt
+
+    leaf_specs = ckpt._flatten_specs(specs)
+    return all(np.array_equal(t.detach().cpu().numpy(), local_shard(saved[k], leaf_specs[k], plan))
+               for k, t in ckpt._flatten(tree).items())
+
+
+def sharded_round_trip(model, state, cfg, path: str, restore_plan, dev) -> dict:
+    """Save a sharded model's training tree (every leaf gathered, world rank
+    0 writes), restore it onto ``restore_plan`` in a fresh model (another
+    seed) and check it bit for bit: on the same plan the restored blocks
+    against the live ones; on another, the live blocks and the restored
+    ones each against their blocks of the stored arrays (read back, so
+    that nothing is gathered for the check)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.weights import shard_model, training_specs
+    from repro_torch.train import checkpoint as ckpt, optimizer as opt
+
+    t0 = time.perf_counter()
+    out = ckpt.save(path, int(state["step"]), ckpt.training_tree(model, state), plan=model.plan,
+                    specs=training_specs(model, state))
+    save_s = time.perf_counter() - t0
+    same = restore_plan == model.plan
+    saved = None
+    if not same:
+        with open(os.path.join(out, "meta.json")) as fh:
+            manifest = json.load(fh)["manifest"]
+        saved = {k: np.load(os.path.join(out, f)) for k, f in manifest.items()}
+        saved_equal = _blocks_match(ckpt.training_tree(model, state), training_specs(model, state),
+                                    model.plan, saved)
+    fresh = shard_model(tf.Transformer(cfg, device=dev, seed=1), restore_plan)
+    fstate = opt.init_opt_state(fresh, opt.OptimizerConfig())
+    t0 = time.perf_counter()
+    specs = training_specs(fresh, fstate)
+    tree, _ = ckpt.restore(out, ckpt.training_tree(fresh, fstate), plan=restore_plan, specs=specs)
+    ckpt.load_training_tree(tree, fresh, fstate)
+    del tree
+    restore_s = time.perf_counter() - t0
+    got = ckpt.training_tree(fresh, fstate)
+    if same:
+        live = leaves(ckpt.training_tree(model, state))
+        saved_equal = equal = all(torch.equal(t, live[k]) for k, t in leaves(got).items())
+    else:
+        equal = _blocks_match(got, specs, restore_plan, saved)
+    return {"restored_on": [restore_plan.data_size, restore_plan.model_size],
+            "local_bytes": sum(t.numel() * t.element_size() for t in leaves(got).values()),
+            "save_s": save_s, "restore_s": restore_s, "saved_equal": bool(saved_equal),
+            "bit_equal": bool(equal)}
+
+
+def compressed_check(model, cfg, batch, mesh, plan, dev) -> dict:
+    """The unsharded model's gradient on this data rank's rows of the batch
+    (a real gradient, different on each data rank) through the int8
+    compressed all-reduce over ``data``, against the exact mean (a SUM
+    all-reduce over ``data``, divided): per leaf the error over the
+    reference's one-shot bound max|g| / 127 (max over the data ranks);
+    the largest of them, which must be at most
+    ``LM_SHARDED_COMPRESSED_LIMIT``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.shard import collectives, plans
+    from repro_torch.train.compression import make_compressed_allreduce
+    from repro_torch.train.trainer import to_device
+
+    per = LM_SHARDED_BATCH // plan.row_size
+    rows = {k: v[plan.row_rank * per:(plan.row_rank + 1) * per] for k, v in batch.items()}
+    loss, _ = tf.loss_fn(model, to_device(rows, dev), cfg)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    plans.reset_exchanges()
+    g_hat, _ = make_compressed_allreduce(mesh, "data")(grads, {n: torch.zeros_like(g) for n, g in grads.items()})
+    sent = sum(plans.exchanged.values())
+    worst = 0.0
+    for n, g in grads.items():
+        exact = collectives.all_reduce(g, plan, ("data",), "exact") / plan.row_size
+        gmax = collectives.all_reduce(g.abs().max(), plan, ("data",), "exact", op="max")
+        err = (g_hat[n] - exact).abs().max()
+        worst = max(worst, (err / torch.clamp(gmax / 127, min=1e-30)).item())
+    return {"leaves": len(grads), "sent_bytes": sent, "worst_error_over_bound": worst}
+
+
+def moe_group_check(mcfg, plan, dev) -> dict:
+    """The grouped MoE dispatch (``moe_apply`` with ``plan``: one token
+    group per data rank, capacity per group, the experts over ``model``)
+    of a block of ``mcfg``'s widths, its router pulled to expert 0 so that
+    every group drops tokens, on this data rank's rows of the
+    ``LM_SHARDED_BATCH`` x ``LM_SHARDED_MOE_SEQ`` tokens, against the plain
+    ``moe_apply`` (no plan) of those rows alone, which is that group's
+    computation; ``aux`` against the plain call on the whole batch.  The
+    largest excesses over ``LM_SHARDED_MOE_TOL`` (at most 0 where they
+    agree), and whether the whole batch as one group drops other tokens
+    (it must, or the check could not tell the groups apart)."""
+    from repro_torch.models.moe import moe_apply, moe_params, moe_specs
+    from repro_torch.shard.plans import local_shard
+
+    m, d = mcfg.moe, mcfg.d_model
+    gen = torch.Generator().manual_seed(11)
+    p = moe_params(d, m, generator=gen, device="cpu")
+    p["router"][:, 0] += LM_SHARDED_MOE_SKEW
+    p = {k: v.to(dev) for k, v in p.items()}
+    x = (torch.randn((LM_SHARDED_BATCH * LM_SHARDED_MOE_SEQ, d), generator=gen) + 0.5).to(dev)
+    per = x.shape[0] // plan.row_size
+    rows = x[plan.row_rank * per:(plan.row_rank + 1) * per]
+    specs = moe_specs(d, m, plan)
+    tol = LM_SHARDED_MOE_TOL
+    with torch.no_grad():
+        y, aux = moe_apply({k: local_shard(v, specs[k], plan) for k, v in p.items()}, rows, m, True, plan)
+        y_group, _ = moe_apply(p, rows, m, True, None)
+        y_all, aux_all = moe_apply(p, x, m, True, None)
+    y_all = y_all[plan.row_rank * per:(plan.row_rank + 1) * per]
+    return {"tokens": x.shape[0], "groups": plan.row_size, "experts_split": specs["we_gate"][0] is not None,
+            "y_excess": lm_excess(y, y_group, tol["rtol"], tol["atol"]),
+            "aux_excess": abs(aux.item() - aux_all.item()) - tol["rtol"] * abs(aux_all.item()),
+            "groups_drop_other_tokens": not torch.allclose(y_group, y_all, rtol=1e-3), "tol": tol}
+
+
+def probe_collectives(dev) -> None:
+    """Each of the three collectives, once on a CUDA tensor over the
+    world: raises naming the one the backend refuses."""
+    import torch.distributed as dist
+
+    from repro_torch.shard.plans import _all_gather
+
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    out = torch.empty(4 * dist.get_world_size(), dtype=torch.float32, device=dev)
+    for name, call in (("all_gather", lambda: _all_gather(out, x, None)),
+                       ("all_reduce SUM", lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.SUM)),
+                       ("all_reduce MAX", lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX)),
+                       ("broadcast", lambda: dist.broadcast(x.clone(), src=0))):
+        try:
+            call()
+        except RuntimeError as e:
+            raise RuntimeError(f"{dist.get_backend()} refused a CUDA tensor for {name}: {e}") from e
+
+
+def lm_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of part 2's gloo world (spawned, on the one card): the
+    collectives probed on CUDA tensors; on the ``LM_SHARDED_WORLD`` mesh
+    smollm-360m (f32, full width, ``LM_SHARDED_BLOCKS`` blocks) and the
+    reduced MoE arch held to their unsharded steps, the grouped MoE
+    dispatch against the plain one per group, the compressed all-reduce
+    of smollm's real gradients over ``data``, and smollm's
+    checkpoint restored onto the ``LM_SHARDED_RESTORE`` mesh of the same
+    ranks.  Writes its row, or its traceback, as JSON to ``out % rank``."""
+    import dataclasses
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.shard.plans import MeshPlan
+    from repro_torch.train import data
+
+    dev = torch.device("cuda", 0)
+    # the card's host has 8 cores for the four ranks and the parent
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world, timeout=timedelta(seconds=120))
+        probe_collectives(dev)
+        mesh = make_test_mesh(*LM_SHARDED_WORLD)
+        plan = MeshPlan.from_mesh(mesh)
+        cfg = dataclasses.replace(registry.get_config(LM_ARCH), dtype="float32", n_layers=LM_SHARDED_BLOCKS)
+        model = tf.Transformer(cfg, device=dev, seed=0)
+        batch = data.lm_batch(cfg, LM_SHARDED_BATCH, LM_SHARDED_SEQ, step=0)
+        compressed = compressed_check(model, cfg, batch, mesh, plan, dev)
+        row, sharded, state = hold_sharded(cfg, batch, plan, model, LM_SHARDED_STEPS, dev)
+        del model
+        restore = MeshPlan.from_mesh(make_test_mesh(*LM_SHARDED_RESTORE))
+        round_trip = sharded_round_trip(sharded, state, cfg, os.path.join(os.path.dirname(store), "ckpt"),
+                                        restore, dev)
+        del sharded, state
+        # the MoE's weights are drawn on the CPU, whose draws the CPU tests can
+        # hold: with them no group of this batch drops other tokens than the
+        # whole batch does, so the grouped step equals the unsharded one;
+        # moe_group_check holds a dispatch whose groups do drop others
+        mcfg = dataclasses.replace(reduce_config(registry.get_config(LM_SHARDED_MOE_ARCH)), dtype="float32")
+        moe_row, _, _ = hold_sharded(mcfg, data.lm_batch(mcfg, LM_SHARDED_BATCH, LM_SHARDED_MOE_SEQ, step=0),
+                                     plan, tf.Transformer(mcfg, device="cpu", seed=0).to(dev),
+                                     LM_SHARDED_STEPS, dev)
+        result = {"rank": rank, "coords": [plan.row_rank, plan.model_rank], "smollm": row,
+                  "moe": moe_row, "moe_groups": moe_group_check(mcfg, plan, dev),
+                  "compressed": compressed, "checkpoint": round_trip}
+    except BaseException:
+        result = {"rank": rank, "error": traceback.format_exc()}
+        raise
+    finally:
+        with open(out % rank, "w") as fh:
+            json.dump(result, fh)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_gloo_world(tmp: str) -> list[dict]:
+    """Part 2's ranks, spawned together (CUDA cannot be forked once it is
+    initialised) and killed at ``LM_SHARDED_DEADLINE_S``: every rank's row;
+    raises with the tracebacks of the ranks that failed or hung."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    world = LM_SHARDED_WORLD[0] * LM_SHARDED_WORLD[1]
+    out = os.path.join(tmp, "rank%d.json")
+    procs = [ctx.Process(target=lm_sharded_rank, args=(r, world, os.path.join(tmp, "store"), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + LM_SHARDED_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    rows = []
+    for r in range(world):
+        try:
+            with open(out % r) as fh:
+                rows.append(json.load(fh))
+        except FileNotFoundError:
+            rows.append({"rank": r, "error": "left no result"})
+    errors = [f"rank {row['rank']}: {row['error']}" for row in rows if "error" in row]
+    check(not hung and not errors, f"lm_sharded gloo world: ranks {hung} hung past "
+          f"{LM_SHARDED_DEADLINE_S} s; " + "\n".join(errors))
+    return rows
+
+
+def phase_lm_sharded(dev) -> None:
+    """The sharded LM on ``torch.distributed`` (``shard/collectives.py``,
+    the plan branches of ``models/``, the sharded train step, the
+    compressed all-reduce, elastic checkpoints), f32, on the global batch
+    of ``LM_SHARDED_BATCH`` sequences of ``LM_SHARDED_SEQ``:
+
+    (1) a one-rank NCCL world (``opt_mesh``, 1 x 1): smollm-360m at full
+        width and depth, ``LM_SHARDED_STEPS`` sharded steps held to the
+        unsharded port step on the same card, weights and batch (loss
+        rtol 1e-5, parameters rtol 5e-4 / atol 1e-5), step ms beside the
+        unsharded step's, peak memory; its checkpoint saved and restored
+        bit for bit;
+    (2) a 2 x 2 gloo world of four spawned processes on the one card, with
+        CUDA tensors (NCCL takes one rank per card): smollm-360m at full
+        width ("seq" attention: 15 heads on 2 model ranks; vocabulary over
+        ``model``; FSDP of d = 960 over ``data``) with its depth cut to
+        ``LM_SHARDED_BLOCKS`` blocks, and the reduced MoE arch, each held
+        to the unsharded step; the compressed all-reduce of real gradients
+        within its one-shot bound; the checkpoint restored on a 1 x 4 mesh
+        bit for bit.  Per rank: step ms, the bytes each collective call
+        site sent per step, peak memory.  Gloo stages CUDA tensors through
+        host memory itself; the port adds no staging of its own."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.shard.plans import MeshPlan
+    from repro_torch.train import data
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(LM_ARCH), dtype="float32")
+    plan = MeshPlan.from_mesh(opt_mesh(dev))
+    model = tf.Transformer(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == LM_PARAMS, f"{LM_ARCH}: {n_params} parameters, not {LM_PARAMS}")
+    batch = data.lm_batch(cfg, LM_SHARDED_BATCH, LM_SHARDED_SEQ, step=0)
+    row, sharded, state = hold_sharded(cfg, batch, plan, model, LM_SHARDED_STEPS, dev)
+    del model
+    torch.cuda.empty_cache()
+    emit("lm_sharded", part="nccl_1x1", arch=LM_ARCH, params=n_params, world=[1, 1], backend="nccl",
+         batch=LM_SHARDED_BATCH, seq=LM_SHARDED_SEQ, **row)
+    check(sharded_agrees(row), "lm_sharded 1x1: the sharded step left the unsharded one's tolerance "
+          f"({ {k: row[k] for k in SHARDED_EXCESSES} })")
+    with tempfile.TemporaryDirectory() as tmp:
+        trip = sharded_round_trip(sharded, state, cfg, tmp, plan, dev)
+    del sharded, state
+    torch.cuda.empty_cache()
+    emit("lm_sharded", part="nccl_checkpoint", **trip)
+    check(trip["bit_equal"], "lm_sharded 1x1: the restored checkpoint differs")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = run_gloo_world(tmp)
+    for r in rows:
+        for arch, key in ((LM_ARCH, "smollm"), (LM_SHARDED_MOE_ARCH, "moe")):
+            part = r[key]
+            emit("lm_sharded", part="gloo_2x2", rank=r["rank"], coords=r["coords"], arch=arch,
+                 backend="gloo", staging="inside ProcessGroupGloo (CUDA tensors via host memory)",
+                 reduced={"n_layers": [cfg.n_layers, LM_SHARDED_BLOCKS]} if key == "smollm" else "reduce_config",
+                 **part)
+            check(sharded_agrees(part), f"lm_sharded 2x2 rank {r['rank']} {arch}: the sharded step left "
+                  f"the unsharded one's tolerance ({ {k: part[k] for k in SHARDED_EXCESSES} })")
+        emit("lm_sharded", part="gloo_2x2_extras", rank=r["rank"], moe_groups=r["moe_groups"],
+             compressed=r["compressed"], checkpoint=r["checkpoint"])
+        groups = r["moe_groups"]
+        check(groups["y_excess"] <= 0 and groups["aux_excess"] <= 0 and groups["groups_drop_other_tokens"],
+              f"lm_sharded rank {r['rank']}: the grouped MoE dispatch left the plain one per group ({groups})")
+        check(r["compressed"]["worst_error_over_bound"] <= LM_SHARDED_COMPRESSED_LIMIT,
+              f"lm_sharded rank {r['rank']}: compressed all-reduce past half of max|g| / 127")
+        check(r["checkpoint"]["saved_equal"] and r["checkpoint"]["bit_equal"],
+              f"lm_sharded rank {r['rank']}: the saved or the 1x4-restored state differs")
+    emit("lm_sharded", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def phase_packing(dev) -> None:
     """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
     (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
@@ -4259,6 +4701,7 @@ def main() -> None:
     phase_lm_train(dev)
     phase_deepfm_train(dev)
     phase_gnn_train(dev)
+    phase_lm_sharded(dev)
     # launches on the main paths: the earlier phases', the opt phase's and
     # the calibration's
     for more in (opt, cal):

@@ -33,33 +33,43 @@ def chunked_attention(
     causal: bool = True,
     window: int = 0,
     chunk: int = 1024,
+    q_offset: int = 0,
+    scale: float | None = None,
+    score_sum=None,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks (a Python loop over chunks).
 
-    Shapes: q (B, S, H, hd); k, v (B, S, KV, hd) with H % KV == 0.
-    ``window > 0`` restricts to a sliding window (local layers).
+    Shapes: q (B, Sq, H, hd); k, v (B, S, KV, hd) with H % KV == 0.
+    ``window > 0`` restricts to a sliding window (local layers).  The
+    queries sit at positions ``q_offset`` on (a sequence-parallel rank's
+    shard of the S keys' sequence; 0 and Sq == S without one).  ``scale``
+    defaults to ``hd ** -0.5``; ``score_sum``, when given, completes each
+    chunk's scores (a head_dim-split rank's partial sums) before the mask.
 
     With grad enabled each chunk's step is checkpointed, as the reference
     checkpoints its scan body: the backward recomputes the chunk's (S, chunk)
     probabilities instead of keeping them for every chunk, which would
     bring back the whole S x S score tensor.  The values are the same.
     """
-    B, S, H, hd = q.shape
+    B, Sq, H, hd = q.shape
+    S = k.shape[1]
     KV = k.shape[2]
     G = H // KV
-    scale = hd**-0.5
+    scale = hd**-0.5 if scale is None else scale
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
     dev = q.device
 
     q = q * scale
-    q_pos = torch.arange(S, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
 
     def body(m, l, acc, kj, vj, j: int):
-        s = _gqa_scores(q, kj)  # (B, KV, G, S, chunk)
+        s = _gqa_scores(q, kj)  # (B, KV, G, Sq, chunk)
+        if score_sum is not None:
+            s = score_sum(s)
         k_pos = j * chunk + torch.arange(chunk, device=dev)
-        mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
         if window:
@@ -73,9 +83,9 @@ def chunked_attention(
         return m_new, l_new, acc * corr[..., None] + pv
 
     remat = torch.is_grad_enabled()
-    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32, device=dev)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
     for j in range(S // chunk):
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
@@ -84,46 +94,52 @@ def chunked_attention(
         else:
             m, l, acc = body(m, l, acc, kj, vj, j)
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
     return out.to(q.dtype)
 
 
-def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, *,
+                     q_offset: int = 0, scale: float | None = None, score_sum=None) -> torch.Tensor:
     """Sliding-window attention computing only the diagonal band: each
     W-sized query block attends to its own and the previous key block.
 
-    Shapes: q (B, S, H, hd); k, v (B, S, KV, hd); S % window == 0.
+    Shapes: q (B, Sq, H, hd); k, v (B, S, KV, hd); S, Sq and ``q_offset``
+    (the queries' first position) multiples of the window; ``scale`` and
+    ``score_sum`` as in :func:`chunked_attention`.
     """
-    B, S, H, hd = q.shape
+    B, Sq, H, hd = q.shape
+    S = k.shape[1]
     KV = k.shape[2]
     G = H // KV
     W = window
-    if S % W:
-        raise ValueError(f"sequence {S} is not a multiple of the window {W}")
-    nb = S // W
-    scale = hd**-0.5
+    if S % W or Sq % W or q_offset % W:
+        raise ValueError(f"sequence {S}, queries {Sq} at {q_offset}: not multiples of the window {W}")
+    nb, b0 = Sq // W, q_offset // W
+    scale = hd**-0.5 if scale is None else scale
     dev = q.device
 
     qb = (q * scale).reshape(B, nb, W, H, hd)
     pad = torch.zeros((B, W, KV, hd), dtype=k.dtype, device=dev)
-    kp = torch.cat([pad, k], dim=1).reshape(B, nb + 1, W, KV, hd)
-    vp = torch.cat([pad, v], dim=1).reshape(B, nb + 1, W, KV, hd)
+    kp = torch.cat([pad, k], dim=1).reshape(B, S // W + 1, W, KV, hd)[:, b0:b0 + nb + 1]
+    vp = torch.cat([pad, v], dim=1).reshape(B, S // W + 1, W, KV, hd)[:, b0:b0 + nb + 1]
     kw = torch.cat([kp[:, :-1], kp[:, 1:]], dim=2)  # (B, nb, 2W, KV, hd)
     vw = torch.cat([vp[:, :-1], vp[:, 1:]], dim=2)
 
     qg = qb.reshape(B, nb, W, KV, G, hd)
     s = torch.einsum("bnqkgh,bnskh->bnkgqs", qg.float(), kw.float())  # (B, nb, KV, G, W, 2W)
-    # query i (0..W-1) sits at absolute W + i; key j (0..2W-1) at j; block
-    # 0's first W keys are padding
+    if score_sum is not None:
+        s = score_sum(s)
+    # query i (0..W-1) sits at absolute W + i; key j (0..2W-1) at j; the
+    # sequence's block 0 has W keys of padding first
     qpos = W + torch.arange(W, device=dev)
     kpos = torch.arange(2 * W, device=dev)
     mask = (qpos[:, None] >= kpos[None, :]) & (qpos[:, None] - kpos[None, :] < W)
     m0 = mask & (kpos[None, :] >= W)
-    full_mask = torch.cat([m0[None], mask.expand(nb - 1, W, 2 * W)], dim=0)
+    full_mask = torch.stack([m0 if b0 + n == 0 else mask for n in range(nb)])
     s = torch.where(full_mask[None, :, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bnkgqs,bnskh->bnqkgh", p.to(vw.dtype).float(), vw.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def decode_attention(

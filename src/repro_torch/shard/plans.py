@@ -31,22 +31,31 @@ has no bitwise reductions, and the gloo worlds of the CPU tests must run
 the calls the card runs.  :class:`LocalPlan` is the same layout on one
 device with no collectives: the closures' ``plan=None``.
 
-The model-family helpers of the reference's ``MeshPlan`` (``p_batch``,
-``fsdp_dim``, ``tp_dim``, ``attn_mode``) belong to the seed's model
-scaffolding and are not ported here.
+The model-family helpers of the reference's ``MeshPlan`` (``batch``,
+``batch_size_divisor``, ``p_batch``, ``fsdp_dim``, ``tp_dim``,
+``attn_mode``) are here too, with :class:`P`, the port's PartitionSpec,
+and :func:`local_shard`, a tensor's block on this rank.  The sharded
+LM's collectives, which autograd differentiates, and
+``full_from_shards``, the whole tensor gathered back, are in
+``shard/collectives.py``; the specs of its parameters, caches and
+optimizer state in ``models/transformer.py`` and ``train/optimizer.py``.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 INF = float("inf")
 
-#: 4-byte words each exchange of a MeshPlan sent from this rank, and its
-#: calls, by exchange name (plain counters, as ``kernels.ops.launches``;
-#: callers reset them).  ``any_world`` is called once per closure iteration.
+#: bytes each exchange sent from this rank, and its calls, by call-site
+#: name: the ``opt`` family's exchanges of a MeshPlan (``any_world`` is
+#: called once per closure iteration) and the sharded LM's collectives
+#: (``shard/collectives.py``).  Plain counters, as ``kernels.ops.launches``;
+#: callers reset them.
 exchanged: dict[str, int] = {}
 exchange_calls: dict[str, int] = {}
 
@@ -54,6 +63,35 @@ exchange_calls: dict[str, int] = {}
 def reset_exchanges() -> None:
     exchanged.clear()
     exchange_calls.clear()
+
+
+def note(name: str, sent: torch.Tensor, group_size: int | None = None) -> None:
+    """Count an exchange at the call site ``name``: ``sent`` is what this
+    rank puts on the wire.  A group of one rank (``group_size`` 1) sends
+    nothing, though its call counts; without a size the bytes are counted
+    from the shape."""
+    if group_size != 1:
+        exchanged[name] = exchanged.get(name, 0) + sent.numel() * sent.element_size()
+    exchange_calls[name] = exchange_calls.get(name, 0) + 1
+
+
+class P(tuple):
+    """The port's PartitionSpec: one entry per tensor dim, ``None`` (the dim
+    is whole on every rank), a mesh axis name (the dim is split into equal
+    blocks over that axis) or a tuple of axis names (split over all of
+    them, row-major).  A plain immutable tuple, so specs compare with the
+    reference's as tuples."""
+
+    __slots__ = ()
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
 
 
 def _per(extent: int, parts: int) -> int:
@@ -339,6 +377,54 @@ class MeshPlan(_Layout):
     def batch_size_divisor(self) -> int:
         return self.pod_size * self.data_size
 
+    def p_batch(self, *rest) -> P:
+        return P(self.batch, *rest)
+
+    def fsdp_dim(self, size: int):
+        """FSDP shards a parameter dim over ``data`` only when divisible."""
+        return self.data_axis if size % self.data_size == 0 else None
+
+    def tp_dim(self, size: int):
+        return self.model_axis if size % self.model_size == 0 else None
+
+    def attn_mode(self, n_heads: int, head_dim: int, decode: bool) -> str:
+        """The reference's attention TP mode: ``head`` when the heads divide
+        over ``model`` (never for decode); else ``seq`` (sequence-parallel)
+        unless ``REPRO_ATTN_FALLBACK`` names another fallback, or for decode;
+        else ``hd`` (head_dim split) when it divides, else ``replicate``.
+        ``REPRO_ATTN_FORCE`` overrides the mode outside decode."""
+        mode = os.environ.get("REPRO_ATTN_FALLBACK", "seq")
+        force = os.environ.get("REPRO_ATTN_FORCE")
+        if force and not decode:
+            return force
+        if not decode and n_heads % self.model_size == 0:
+            return "head"
+        if not decode and mode == "seq":
+            return "seq"
+        if head_dim % self.model_size == 0:
+            return "hd"
+        return "replicate"
+
+    def axis_size(self, axis) -> int:
+        """Ranks along a spec entry: an axis name or a tuple of them."""
+        if isinstance(axis, tuple):
+            out = 1
+            for a in axis:
+                out *= self.axis_size(a)
+            return out
+        return {"pod": self.pod_size, "data": self.data_size, "model": self.model_size}[axis]
+
+    def axis_rank(self, axis) -> int:
+        """This rank's coordinate along a spec entry (row-major over a
+        tuple); the row rank is ``pod * data_size + data``."""
+        if isinstance(axis, tuple):
+            out = 0
+            for a in axis:
+                out = out * self.axis_size(a) + self.axis_rank(a)
+            return out
+        return {"pod": self.row_rank // self.data_size, "data": self.row_rank % self.data_size,
+                "model": self.model_rank}[axis]
+
     @property
     def row_size(self) -> int:
         return self.pod_size * self.data_size
@@ -349,8 +435,7 @@ class MeshPlan(_Layout):
         return self.row_size * self.model_size
 
     def _note(self, name, sent):
-        exchanged[name] = exchanged.get(name, 0) + sent.numel() * sent.element_size() // 4
-        exchange_calls[name] = exchange_calls.get(name, 0) + 1
+        note(name, sent)
 
     def _gather(self, x, axis):
         group, size = (
@@ -393,6 +478,35 @@ class MeshPlan(_Layout):
                 f"the ranks of the mesh disagree on the {what}; every rank "
                 "must make the same calls with the same values"
             )
+
+
+def _blocks(spec: P, shape, plan: MeshPlan):
+    """``(dim, axis, size, rank)`` of each split dim of a ``shape`` tensor
+    under ``spec``; raises unless every split dim divides."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the shape {tuple(shape)} has dims")
+    out = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        size = plan.axis_size(axis)
+        if shape[dim] % size:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split over {axis!r} ({size} ranks)")
+        out.append((dim, axis, size, plan.axis_rank(axis)))
+    return out
+
+
+def local_shard(t, spec: P, plan: MeshPlan):
+    """This rank's block of the whole tensor (or numpy array) ``t`` under
+    ``spec``: a new, contiguous array of its own."""
+    idx = [slice(None)] * len(t.shape)
+    for dim, _, size, rank in _blocks(spec, t.shape, plan):
+        per = t.shape[dim] // size
+        idx[dim] = slice(rank * per, (rank + 1) * per)
+    block = t[tuple(idx)]
+    if isinstance(block, torch.Tensor):
+        return block.clone(memory_format=torch.contiguous_format)
+    return np.array(block)
 
 
 def check_mesh(mesh, device: str) -> None:

@@ -19,6 +19,13 @@ state out as the reference's ``{"params": ..., "opt": ...}`` tree, in the
 model family's own layout (``models/weights.py`` for the ``Transformer``,
 ``models/recsys/deepfm.py`` for ``DeepFM``, ``models/gnn/api.py`` for the
 ``GNN``).
+
+Mesh elasticity: arrays are stored whole.  ``save(..., plan=, specs=)``
+of a sharded model's tree (``models/weights.py``'s ``training_specs``
+gives an LM's specs) gathers one leaf at a time on every rank, and rank 0
+of the world writes it before the next is gathered, so at most one whole
+leaf is live; ``restore(..., plan=, specs=)`` gives each rank its block
+under any plan, so a job restarts on another mesh.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import torch
 from repro_torch.models import weights
 from repro_torch.models.gnn import api as gnn
 from repro_torch.models.recsys import deepfm
+from repro_torch.shard import collectives as C
+from repro_torch.shard.plans import local_shard
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -74,14 +83,50 @@ def _numpy(leaf) -> tuple[np.ndarray, str | None]:
     return np.asarray(leaf), None
 
 
-def save(path: str, step: int, tree, meta: dict | None = None) -> str:
+def _flatten_specs(specs, prefix: str = "") -> dict:
+    """``_flatten`` of a spec tree (nested dicts of ``P``, which are tuples
+    but leaves here)."""
+    if isinstance(specs, dict):
+        out = {}
+        for k in sorted(specs):
+            out.update(_flatten_specs(specs[k], f"{prefix}[{k!r}]"))
+        return out
+    return {prefix: specs}
+
+
+def save(path: str, step: int, tree, meta: dict | None = None, plan=None, specs=None) -> str:
+    """Write ``tree`` as ``step_<08d>`` under ``path``, atomically.  With a
+    ``plan``, ``tree`` holds this rank's blocks and ``specs`` their specs:
+    every rank gathers one whole leaf at a time, in the same order, world
+    rank 0 writes it and every rank drops it before the next; no rank
+    returns before the directory is published."""
+    leaves = _flatten(tree)
+    if plan is None:
+        return _save(path, step, leaves.items(), meta)
+    import torch.distributed as dist
+
+    leaf_specs = _flatten_specs(specs)
+    whole = ((k, C.full_from_shards(t, leaf_specs[k], plan, "checkpoint")) for k, t in leaves.items())
+    if dist.get_rank() == 0:
+        final = _save(path, step, whole, meta)
+    else:
+        final = os.path.join(path, f"step_{step:08d}")
+        for _ in whole:  # this rank's part in each leaf's gather
+            pass
+    C.all_reduce(torch.zeros(1, device=next(iter(leaves.values())).device),
+                 plan, C.MESH_AXES, "checkpoint.published")
+    return final
+
+
+def _save(path: str, step: int, leaves, meta: dict | None = None) -> str:
+    """Write the ``(key, leaf)`` pairs, one at a time, and publish."""
     tmp = os.path.join(path, f"tmp-{step}")
     final = os.path.join(path, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest, dtypes = {}, {}
-    for key, leaf in _flatten(tree).items():
+    for key, leaf in leaves:
         fname = re.sub(r"[^A-Za-z0-9_.-]", "_", key) + ".npy"
         arr, dtype = _numpy(leaf)
         np.save(os.path.join(tmp, fname), arr)
@@ -97,15 +142,20 @@ def save(path: str, step: int, tree, meta: dict | None = None) -> str:
     return final
 
 
-def restore(ckpt_dir: str, template, device=None):
+def restore(ckpt_dir: str, template, device=None, plan=None, specs=None):
     """Load into the structure of ``template`` (a tree of tensors): each
     leaf in its template's dtype, on ``device`` (default: the template
-    leaf's device).  Returns ``(tree, meta)``."""
+    leaf's device).  With a ``plan``, each leaf is this rank's block of
+    the stored array under its spec in ``specs`` (a tree like
+    ``template``'s), whatever mesh saved it.  Returns ``(tree, meta)``."""
     with open(os.path.join(ckpt_dir, "meta.json")) as fh:
         meta = json.load(fh)
+    leaf_specs = {} if plan is None else _flatten_specs(specs)
     loaded = {}
     for key, leaf in _flatten(template).items():
         arr = np.load(os.path.join(ckpt_dir, meta["manifest"][key]))
+        if plan is not None:
+            arr = local_shard(arr, leaf_specs[key], plan)
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: the checkpoint holds shape {arr.shape}, the template {tuple(leaf.shape)}")
         dev = leaf.device if device is None else torch.device(device)

@@ -16,6 +16,13 @@ moment}}`` keyed by parameter name; an int8 moment is ``{"q", "scale"}``.
 the reference's arithmetic in its order.  A 0-d parameter keeps its shape
 (the reference's ``q8_decode`` hands it back as ``(1,)``); its int8 moment
 is stored as the reference stores it, ``q`` and ``scale`` of shape (1,).
+
+On a sharded model (``plan`` and the parameters' ``specs``) every rank
+updates its own blocks: the gradient norm counts each element once (a
+block held by several ranks is counted by the first of them, then one SUM
+over the mesh), and an int8 row whose last dim is split takes its scale
+as the MAX over the ranks that hold its pieces, as the whole row would
+(``opt_state_specs`` gives the state's specs).
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+
+from repro_torch.shard import collectives as C
+from repro_torch.shard.plans import P
 
 
 @dataclass(frozen=True)
@@ -45,15 +55,19 @@ def _q8_zeros(p: torch.Tensor) -> dict[str, torch.Tensor]:
             "scale": torch.zeros((*shape[:-1], 1), dtype=torch.float32, device=p.device)}
 
 
-def q8_encode(x: torch.Tensor, sqrt_domain: bool = False) -> dict[str, torch.Tensor]:
+def q8_encode(x: torch.Tensor, sqrt_domain: bool = False, row_max=None) -> dict[str, torch.Tensor]:
     """Row-wise absmax int8: one f32 scale per trailing vector, ``q`` of
     ``x``'s shape (a 0-d ``x`` as (1,)).  ``sqrt_domain`` encodes sqrt(x)
     (x >= 0), the second moment's code: a linear one would round small
-    entries of v to zero and blow up 1/sqrt(v)."""
+    entries of v to zero and blow up 1/sqrt(v).  ``row_max`` completes
+    each row's absmax when ``x`` holds a block of the rows' last dim."""
     x = x.reshape(tuple(x.shape) if x.dim() else (1,)).float()
     if sqrt_domain:
         x = torch.sqrt(torch.clamp(x, min=0.0))
-    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = x.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        scale = row_max(scale)
+    scale = scale / 127.0
     q = torch.round(x / torch.clamp(scale, min=1e-20)).to(torch.int8)
     return {"q": q, "scale": scale}
 
@@ -110,28 +124,75 @@ def _read(moment, shape, sqrt_domain: bool = False) -> torch.Tensor:
     return q8_decode(moment, shape, sqrt_domain) if _is_q8(moment) else moment.float()
 
 
-def _write(moment_like, value: torch.Tensor, sqrt_domain: bool = False):
+def _write(moment_like, value: torch.Tensor, sqrt_domain: bool = False, row_max=None):
     if _is_q8(moment_like):
-        return q8_encode(value, sqrt_domain)
+        return q8_encode(value, sqrt_domain, row_max)
     return value.to(moment_like.dtype)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in f32."""
-    values = grads.values() if isinstance(grads, dict) else grads
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in values))
+def _owns(spec: P, plan) -> bool:
+    """Whether this rank counts its block of a leaf split by ``spec``: the
+    first rank along every mesh axis the block is held alike over."""
+    split = {a for a in spec if a is not None}
+    return all(plan.axis_rank(a) == 0 for a in C.MESH_AXES if a not in split)
+
+
+def global_norm(grads, plan=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in f32; of a sharded
+    model's blocks (``plan`` and ``specs`` by name), every element counted
+    once over the mesh, the same on every rank."""
+    if plan is None:
+        values = grads.values() if isinstance(grads, dict) else grads
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in values))
+    dev = next(iter(grads.values())).device
+    sq = sum((torch.sum(torch.square(g.float())) for k, g in grads.items() if _owns(specs[k], plan)),
+             torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.sqrt(C.all_reduce(sq, plan, C.MESH_AXES, "grad_norm"))
+
+
+def _row_max(spec: P, plan):
+    """The MAX over the ranks holding the pieces of a row of a leaf whose
+    last dim ``spec`` splits; None when it is whole."""
+    if plan is None or not spec or spec[-1] is None:
+        return None
+    return lambda t: C.all_reduce(t, plan, (spec[-1],), "q8_scale", op="max")
+
+
+def opt_state_specs(param_specs, cfg: OptimizerConfig, params=None, data_size: int = 16,
+                    model_size: int = 16) -> dict:
+    """The optimizer state's specs, mirroring ``param_specs`` (nested dicts
+    of ``P``): the moments split as their parameters; an int8 moment's
+    ``q`` as its parameter and its ``scale`` the same without the last dim
+    (``params``, a tree of the same shape with ``.shape`` leaves, sizes
+    them).  ``data_size`` and ``model_size`` are the reference's arguments,
+    which it does not read either."""
+    if cfg.moment_dtype != "int8":
+        return {"step": P(), "m": param_specs, "v": param_specs}
+    if params is None:
+        raise ValueError("int8 moment specs need the params tree")
+
+    def moment(ps, p):
+        if isinstance(ps, dict):
+            return {k: moment(ps[k], p[k]) for k in ps}
+        shape = tuple(p.shape)
+        lead = tuple(ps) + (None,) * max(0, len(shape) - len(ps))
+        return {"q": ps, "scale": P(*lead[:-1], None) if shape else P(None)}
+
+    moments = moment(param_specs, params)
+    return {"step": P(), "m": moments, "v": moments}
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: dict, cfg: OptimizerConfig) -> dict:
+def apply_updates(params, grads, state: dict, cfg: OptimizerConfig, plan=None, specs=None) -> dict:
     """One AdamW step: ``params`` (a module, or ``{name: tensor}``) updated
     in place from ``grads`` (``{name: gradient}``; a missing one counts as
     zero), ``state`` rewritten in place.  Returns ``{"grad_norm"}``, the
-    norm before clipping."""
+    norm before clipping.  Blocks of a sharded model take ``plan`` and
+    their ``specs`` by name."""
     named = _named(params)
     grads = {k: grads[k] if grads.get(k) is not None else torch.zeros_like(p) for k, p in named.items()}
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, plan, specs)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     t = step.float()
     b1 = torch.tensor(cfg.b1, dtype=torch.float32, device=t.device)
@@ -145,7 +206,8 @@ def apply_updates(params, grads, state: dict, cfg: OptimizerConfig) -> dict:
         vh = v / c2
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
         p.copy_((p.float() - cfg.lr * delta).to(p.dtype))
-        state["m"][k] = _write(state["m"][k], m)
-        state["v"][k] = _write(state["v"][k], v, sqrt_domain=True)
+        row_max = _row_max(specs[k], plan) if plan is not None else None
+        state["m"][k] = _write(state["m"][k], m, row_max=row_max)
+        state["v"][k] = _write(state["v"][k], v, sqrt_domain=True, row_max=row_max)
     state["step"] = step
     return {"grad_norm": gnorm}

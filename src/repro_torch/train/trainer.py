@@ -7,6 +7,12 @@ Each microbatch's backward adds its f32 gradients into the parameters'
 ``.grad`` (the reference's ``lax.scan`` carry: 0 + g_1 + g_2 + ...), so
 activation memory is one microbatch deep (the models' per-block remat
 bounds it further), and the sum is divided by ``n_micro``.
+
+With a ``plan`` (the LM only) the model is sharded over the plan's mesh
+(``models/weights.py``), every rank is handed the same global batch, and
+each computes with its rows: its backward leaves it its blocks of the
+global gradient, averaged over the batch axes as the reference's are, and
+the update keeps every replica of a block the same on every rank.
 """
 from __future__ import annotations
 
@@ -17,12 +23,15 @@ from repro_torch.configs.base import GNNConfig, RecSysConfig, TransformerConfig
 from . import optimizer as opt
 
 
-def make_loss_fn(model_cfg):
-    """``loss(model, batch) -> (loss, metrics)`` of the config's family."""
+def make_loss_fn(model_cfg, plan=None):
+    """``loss(model, batch) -> (loss, metrics)`` of the config's family; a
+    ``plan`` shards the LM's (the other families take none)."""
     if isinstance(model_cfg, TransformerConfig):
         from repro_torch.models import transformer as tf
 
-        return lambda model, batch: tf.loss_fn(model, batch, model_cfg)
+        return lambda model, batch: tf.loss_fn(model, batch, model_cfg, plan)
+    if plan is not None:
+        raise NotImplementedError(f"{type(model_cfg).__name__} has no sharded loss in the port")
     if isinstance(model_cfg, GNNConfig):
         from repro_torch.models.gnn import api
 
@@ -39,15 +48,22 @@ def to_device(batch, device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_train_step(model_cfg, opt_cfg: opt.OptimizerConfig, n_micro: int = 1):
+def make_train_step(model_cfg, opt_cfg: opt.OptimizerConfig, n_micro: int = 1, plan=None):
     """``step(model, opt_state, batch) -> metrics``: one AdamW step of
     ``model`` (in place) and ``opt_state`` on ``batch`` (numpy arrays or
     tensors, moved to the model's device).  The metrics are 0-d tensors:
     ``loss`` and ``grad_norm`` (before clipping), plus the loss's ``nll``
     and ``aux`` (LM), ``bce`` (DeepFM), ``nll`` (GCN) or ``mse`` (the other
     GNNs) when ``n_micro == 1``; with
-    microbatches the loss is the mean of theirs."""
-    loss_fn = make_loss_fn(model_cfg)
+    microbatches the loss is the mean of theirs.  With a ``plan``, the
+    model is sharded by it and ``batch`` is the global batch, the same on
+    every rank; so are the metrics."""
+    loss_fn = make_loss_fn(model_cfg, plan)
+    sharded = {}
+    if plan is not None:
+        from repro_torch.models.weights import named_specs
+
+        sharded = {"plan": plan, "specs": named_specs(model_cfg, plan)}
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
@@ -70,7 +86,7 @@ def make_train_step(model_cfg, opt_cfg: opt.OptimizerConfig, n_micro: int = 1):
             loss = torch.stack(losses).mean()
             metrics = {}
         grads = {k: p.grad for k, p in params.items()}
-        om = opt.apply_updates(params, grads, opt_state, opt_cfg)
+        om = opt.apply_updates(params, grads, opt_state, opt_cfg, **sharded)
         for p in params.values():
             p.grad = None
         return dict(metrics, loss=loss.detach(), **om)

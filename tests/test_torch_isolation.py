@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-FILES = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "calibrate_planner_torch.py"] \
+FILES = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "calibrate_planner_torch.py",
+                      ROOT / "tests" / "torch_lm_worker.py"] \
     + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
@@ -78,8 +79,9 @@ def test_the_port_has_the_slice_modules():
         "configs/__init__.py", "configs/base.py", "configs/registry.py",
         "configs/reduce.py", "models/common.py", "models/attention.py",
         "models/moe.py", "models/transformer.py", "models/weights.py",
-        "launch/serve.py", "launch/train.py",
+        "launch/serve.py", "launch/train.py", "launch/mesh.py", "shard/collectives.py",
         "train/optimizer.py", "train/data.py", "train/checkpoint.py", "train/trainer.py",
+        "train/compression.py",
         "models/recsys/deepfm.py",
         "models/gnn/common.py", "models/gnn/so3.py", "models/gnn/simple.py",
         "models/gnn/mace.py", "models/gnn/equiformer_v2.py", "models/gnn/api.py",

@@ -1,0 +1,723 @@
+"""The port's sharded LM (``repro_torch.shard``, the ``plan`` branches of
+``models/``, the sharded train step, the compressed all-reduce and the
+elastic checkpoint) against the reference package on the CPU.
+
+Specs are compared on hand-built plans, with no world: the reference's
+``param_specs``, ``cache_specs``, ``opt_state_specs`` and ``attn_mode``
+equal the port's as tuples for every LM arch at full width.
+
+Everything else runs in gloo worlds of 2 x 2, 1 x 2 and 4 x 1 ranks
+(``data`` x ``model``): each rank runs tests/torch_lm_worker.py, which
+imports only torch and the port, and the parent holds the results to the
+reference.  The reference runs on one device, its jitted functions given
+a ``MeshPlan`` of the world's sizes built by hand under a 1 x 1 mesh of
+Auto axes: its plan changes its math only through the MoE's token groups,
+so that runs the plan's code paths on one device.  The reduced configs
+are the reference's ``reduce_config``, in f32, but gemma's, cut to one
+local and one global layer (``CUT``).  Tolerances: the loss
+and the gradient norm within rtol 1e-5, parameters within rtol 5e-4 and
+atol 1e-5 (the reference's own sharded-step test); f32 moments within
+rtol 5e-4 and atol 1e-4 of the leaf's largest magnitude (a gradient off
+by a constant factor, which AdamW's update barely shows, moves every
+moment); int8 moments within one code step of the reference's and their
+scales within rtol 1e-4;
+every replica of a block bit-identical across the ranks that hold it; the
+MoE dispatch and prefill logits within rtol 1e-5; the compressed
+all-reduce and the checkpoints bit-equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import multiprocessing as mp
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+import torch_lm_worker
+from repro.configs import registry as jregistry
+from repro.configs.reduce import reduce_config as j_reduce_config
+from repro.models import moe as jmoe
+from repro.models import transformer as jtf
+from repro.shard import plans as jplans
+from repro.train import checkpoint as jckpt
+from repro.train import optimizer as jopt
+from repro.train import trainer as jtrainer
+from repro_torch.configs import registry
+from repro_torch.configs.base import MoEConfig, TransformerConfig
+from repro_torch.configs.reduce import reduce_config
+from repro_torch.launch.mesh import production_plan
+from repro_torch.models import transformer as ttf
+from repro_torch.models import weights
+from repro_torch.shard.plans import MeshPlan, local_shard
+from repro_torch.train import optimizer as topt
+
+ROOT = Path(__file__).resolve().parents[1]
+LM_ARCHS = [a for a, c in registry.ARCHS.items() if isinstance(c, TransformerConfig)]
+LOSS = dict(rtol=1e-5)
+PARAMS = dict(rtol=5e-4, atol=1e-5)
+#: f32 moments: rtol, and atol as a share of the leaf's largest magnitude
+MOMENTS = dict(rtol=5e-4, atol_share=1e-4)
+B, S = 8, 32
+
+# XLA's backend optimisation level 0 without the CPU fusion emitters, as in
+# test_torch_train.py: the same programs, compiled in about half the time
+COMPILE_OPTIONS = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
+#: the reference's plans run on one device under this mesh (Auto axes:
+#: ``jax.make_mesh`` without ``axis_types`` makes Explicit ones, which the
+#: reference's sharding constraints reject)
+JMESH = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+
+
+# ---------------------------------------------------------------------- #
+# (a) Specs, on hand-built plans
+# ---------------------------------------------------------------------- #
+
+SPEC_PLANS = {"16x16": (1, 16, 16), "2x16x16": (2, 16, 16), "2x2": (1, 2, 2),
+              "4x2": (1, 4, 2), "1x4": (1, 1, 4)}
+
+
+def _plans(name: str):
+    pod, data, model = SPEC_PLANS[name]
+    kw = dict(pod_axis="pod" if pod > 1 else None, data_axis="data", model_axis="model",
+              pod_size=pod, data_size=data, model_size=model)
+    port = production_plan(multi_pod=pod > 1) if model == 16 else MeshPlan(**kw)
+    return jplans.MeshPlan(**kw), port
+
+
+def _tuples(tree):
+    """A spec tree with every spec a plain tuple (of tuples)."""
+    if isinstance(tree, dict):
+        return {k: _tuples(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tuples(v) for v in tree]
+    return tuple(tuple(a) if isinstance(a, tuple) else a for a in tree)
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["train", "decode"])
+@pytest.mark.parametrize("plan", list(SPEC_PLANS))
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_param_and_cache_specs_match_the_reference(arch, plan, decode):
+    cfg, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+    jplan, tplan = _plans(plan)
+    assert (tplan.pod_size, tplan.data_size, tplan.model_size) == SPEC_PLANS[plan]
+    assert _tuples(ttf.param_specs(cfg, tplan, decode)) == _tuples(jtf.param_specs(jcfg, jplan, decode))
+    for seq_shard in (False, True):
+        assert _tuples(ttf.cache_specs(cfg, tplan, seq_shard)) == _tuples(
+            jtf.cache_specs(jcfg, jplan, seq_shard))
+    assert tplan.attn_mode(cfg.n_heads, cfg.hd, decode) == jplan.attn_mode(jcfg.n_heads, jcfg.hd, decode)
+    assert tuple(ttf._x_spec(cfg, tplan)) == tuple(jtf._x_spec(jcfg, jplan))
+
+
+class _Shape:
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+@functools.cache
+def _shape_tree(cfg):
+    """The reference layout's leaf shapes, from the port's model on ``meta``."""
+    def walk(node):
+        return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else _Shape(node.shape)
+
+    return walk(weights.reference_tree(ttf.Transformer(cfg, device="meta")))
+
+
+@pytest.mark.parametrize("moment", ["float32", "int8"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_opt_state_specs_match_the_reference(arch, moment):
+    cfg, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+    shapes = _shape_tree(cfg)
+    for plan in ("16x16", "2x2"):
+        jplan, tplan = _plans(plan)
+        got = topt.opt_state_specs(ttf.param_specs(cfg, tplan), topt.OptimizerConfig(moment_dtype=moment),
+                                   shapes)
+        want = jopt.opt_state_specs(jtf.param_specs(jcfg, jplan), jopt.OptimizerConfig(moment_dtype=moment),
+                                    shapes)
+        assert _tuples(got) == _tuples(want)
+
+
+@pytest.mark.parametrize("env", [{}, {"REPRO_ATTN_FALLBACK": "hd"}, {"REPRO_ATTN_FORCE": "seq"},
+                                 {"REPRO_ATTN_FALLBACK": "none"}], ids=lambda e: ",".join(e) or "default")
+def test_attn_mode_matches_the_reference(monkeypatch, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    for plan in SPEC_PLANS:
+        jplan, tplan = _plans(plan)
+        for heads in (3, 4, 15, 16, 40, 64):
+            for hd in (16, 24, 64, 128):
+                for decode in (False, True):
+                    assert tplan.attn_mode(heads, hd, decode) == jplan.attn_mode(heads, hd, decode)
+
+
+# ---------------------------------------------------------------------- #
+# The inputs of the worlds
+# ---------------------------------------------------------------------- #
+
+#: (mesh shape, arch, moment dtype, n_micro, forced attention mode)
+TRAIN_CASES = [
+    ((2, 2), "internlm2-20b", "float32", 1, None),
+    ((2, 2), "internlm2-20b", "int8", 2, None),
+    ((2, 2), "internlm2-20b", "float32", 1, "hd"),
+    ((2, 2), "smollm-360m", "float32", 1, None),
+    ((2, 2), "qwen3-moe-235b-a22b", "float32", 1, None),
+    ((2, 2), "gemma3-12b", "float32", 1, "seq"),
+    ((1, 2), "smollm-360m", "float32", 1, None),
+    ((1, 2), "internlm2-20b", "float32", 1, None),
+    ((4, 1), "internlm2-20b", "float32", 1, None),
+]
+SHAPES = [(2, 2), (1, 2), (4, 1)]
+#: the microbatched case clips at a quarter, so that clipping (and the
+#: global norm it reads) decides the update
+CLIP = {2: 0.25}
+ELASTIC_SOURCE = ((2, 2), "internlm2-20b", "int8", 2, None)
+ELASTIC_SHAPES = [(1, 4), (4, 1)]
+#: (mesh shape, tokens per data rank): G = 4 and G = 2 with the experts
+#: split, and one group across the data ranks when (T / G) * k < E
+MOE_CASES = [((4, 1), 16), ((2, 2), 16), ((2, 2), 1)]
+PREFILL_ARCHS = ["smollm-360m", "qwen3-moe-235b-a22b"]
+COMPRESS_ROUNDS = 30
+WORLD_DEADLINE_S = 120
+
+# Ranks fork from a server that has imported torch and the worker once, and
+# torch._dynamo, which a rank's first checkpointed forward imports (2 s).
+# tests/test_torch_distributed.py preloads its own worker the same way; the
+# list of the module imported last wins, so this one names both workers.
+_CTX = mp.get_context("forkserver")
+_CTX.set_forkserver_preload(["torch", "torch._dynamo", "torch_opt_worker", "torch_lm_worker"])
+
+
+#: gemma's reduced config cut further, to one local and one global layer
+#: (its reduced period of 5 local layers and a global one takes the
+#: reference 8 s to compile, this 3 s)
+CUT = {"gemma3-12b": dict(local_global_ratio=1, n_layers=2)}
+
+
+def _cfgs(arch: str):
+    kw = dict(CUT.get(arch, {}), dtype="float32")
+    cfg = dataclasses.replace(reduce_config(registry.get_config(arch)), **kw)
+    jcfg = dataclasses.replace(j_reduce_config(jregistry.get_config(arch)), **kw)
+    return cfg, jcfg
+
+
+@functools.cache
+def _tree(arch: str):
+    """The port's seeded weights as the reference's numpy tree, the norm
+    scales drawn so that the ``(1 + scale)`` form is exercised (cached:
+    read only)."""
+    cfg, _ = _cfgs(arch)
+    tree = weights.to_reference(ttf.Transformer(cfg, device="cpu", seed=LM_ARCHS.index(arch)))
+    rng = np.random.default_rng(700 + LM_ARCHS.index(arch))
+
+    def perturb(node, name=""):
+        if isinstance(node, dict):
+            return {k: perturb(v, k) for k, v in node.items()}
+        return rng.normal(0.0, 0.1, node.shape).astype(np.float32) if "norm" in name else node
+
+    return perturb(tree)
+
+
+def _batch(arch: str, n_micro: int):
+    """Tokens and targets (B, S), three targets masked with -1; with
+    microbatches (n_micro, B / n_micro, S)."""
+    cfg, _ = _cfgs(arch)
+    rng = np.random.default_rng(800 + LM_ARCHS.index(arch))
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    targets = toks[:, 1:].copy()
+    targets[0, :3] = -1
+    batch = {"tokens": toks[:, :-1], "targets": targets}
+    if n_micro > 1:
+        batch = {k: v.reshape(n_micro, B // n_micro, S) for k, v in batch.items()}
+    return batch
+
+
+MOE = MoEConfig(n_experts=4, top_k=2, d_ff_expert=16, every=1, d_ff_shared=8, capacity_factor=1.0)
+
+
+def _moe_inputs(shape, per_rank: int):
+    """MoE weights and tokens with the router skewed to expert 0, so that
+    each group drops tokens."""
+    rng = np.random.default_rng(900 + per_rank)
+    d = 8
+    E, f, fs = MOE.n_experts, MOE.d_ff_expert, MOE.d_ff_shared
+    p = {
+        "router": rng.normal(0, 0.3, (d, E)).astype(np.float32),
+        "we_gate": rng.normal(0, 0.3, (E, d, f)).astype(np.float32),
+        "we_up": rng.normal(0, 0.3, (E, d, f)).astype(np.float32),
+        "we_down": rng.normal(0, 0.3, (E, f, d)).astype(np.float32),
+        "ws_gate": rng.normal(0, 0.3, (d, fs)).astype(np.float32),
+        "ws_up": rng.normal(0, 0.3, (d, fs)).astype(np.float32),
+        "ws_down": rng.normal(0, 0.3, (fs, d)).astype(np.float32),
+    }
+    p["router"][:, 0] += 1.5
+    x = rng.normal(0, 1, (per_rank * shape[0], d)).astype(np.float32)
+    x[:, :] += 0.5
+    return p, x
+
+
+def _compress_grads() -> np.ndarray:
+    return np.random.default_rng(1000).normal(size=(4, 64, 32)).astype(np.float32)
+
+
+def _world_cases(shape, ref_dir: str) -> dict:
+    cases = {"train": [], "moe": [], "prefill": []}
+    for case in TRAIN_CASES:
+        if case[0] != shape:
+            continue
+        _, arch, moment, n_micro, force = case
+        cases["train"].append({
+            "key": case, "cfg": _cfgs(arch)[0], "tree": _tree(arch), "batch": _batch(arch, n_micro),
+            "moment": moment, "n_micro": n_micro, "force": force, "clip": CLIP.get(n_micro, 1.0)})
+    for mshape, per in MOE_CASES:
+        if mshape == shape:
+            p, x = _moe_inputs(shape, per)
+            cases["moe"].append({"key": (shape, per), "m": MOE, "p": p, "x": x})
+    if shape == (2, 2):
+        for arch in PREFILL_ARCHS:
+            cases["prefill"].append({"key": arch, "cfg": _cfgs(arch)[0], "tree": _tree(arch),
+                                     "tokens": _batch(arch, 1)["tokens"]})
+        _, arch, moment, _, _ = ELASTIC_SOURCE
+        cases["elastic"] = {"source": ELASTIC_SOURCE, "shapes": ELASTIC_SHAPES, "ref_dir": ref_dir,
+                            "cfg": _cfgs(arch)[0], "tree": _tree(arch), "moment": moment}
+    if shape == (4, 1):
+        cases["compress"] = {"grads": _compress_grads(), "rounds": COMPRESS_ROUNDS}
+    return cases
+
+
+class World:
+    """The ranks of one ``shape`` world, started on its input file;
+    :meth:`results` waits for them until the deadline."""
+
+    def __init__(self, shape, root: Path, cases: dict) -> None:
+        self.shape, self.world = shape, shape[0] * shape[1]
+        root.mkdir()
+        cases_path = root / "cases.pt"
+        torch.save(cases, cases_path)
+        self.out = str(root / "rank%d.pt")
+        self.procs = [
+            _CTX.Process(target=torch_lm_worker.run, args=(
+                rank, self.world, shape, str(root / "store"), str(cases_path), self.out))
+            for rank in range(self.world)
+        ]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.monotonic() + WORLD_DEADLINE_S
+        self._results = None
+
+    def kill(self) -> list[int]:
+        hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        return hung
+
+    def results(self) -> list[dict]:
+        if self._results is None:
+            for p in self.procs:
+                p.join(max(0.0, self.deadline - time.monotonic()))
+            hung = self.kill()
+            results = []
+            for rank in range(self.world):
+                try:
+                    results.append(torch.load(self.out % rank, weights_only=False))
+                except FileNotFoundError:
+                    results.append({"error": f"rank {rank} left no results"})
+            self._results = (hung, results)
+        hung, results = self._results
+        errors = [r["error"] for r in results if "error" in r]
+        assert not hung and not errors, (
+            f"{self.shape} world: ranks {hung} hung past {WORLD_DEADLINE_S} s; " + "\n".join(errors))
+        return results
+
+
+# ---------------------------------------------------------------------- #
+# The reference's results
+# ---------------------------------------------------------------------- #
+
+
+def _jplan(shape):
+    return jplans.MeshPlan(pod_axis=None, data_axis="data", model_axis="model",
+                           pod_size=1, data_size=shape[0], model_size=shape[1])
+
+
+def _compile(fn, *args):
+    with JMESH:
+        return jax.jit(fn).lower(*args).compile(compiler_options=COMPILE_OPTIONS)
+
+
+_REF: dict = {}
+
+
+def _ref_key(case) -> tuple:
+    """Only the MoE's groups read the plan's sizes, so a dense arch's step
+    is the same in every world."""
+    shape, arch, moment, n_micro, _ = case
+    return arch, shape[0] if _cfgs(arch)[1].moe else None, moment, n_micro
+
+
+def _reference() -> dict:
+    """Every reference result the checks read: the train step of each train
+    case under its plan (loss, grad_norm, parameters and moments),
+    ``moe_apply`` on each MoE case under its plan and on the first without
+    one, and the MoE arch's ``prefill_step`` on 2 x 2.  One jitted program
+    per arch, one for the MoE cases and one for the prefill (a program per
+    call would compile the int8 step's gradient again; one program for all
+    compiles slower than these)."""
+    if _REF:
+        return _REF
+    jobs = {}
+    for case in TRAIN_CASES:
+        key = _ref_key(case)
+        if ("train", key) in jobs:
+            continue
+        shape, arch, moment, n_micro, _ = case
+        _, jcfg = _cfgs(arch)
+        ocfg = jopt.OptimizerConfig(moment_dtype=moment, grad_clip=CLIP.get(n_micro, 1.0))
+        params = jax.tree.map(jnp.asarray, _tree(arch))
+        batch = {k: jnp.asarray(v) for k, v in _batch(arch, n_micro).items()}
+        jobs["train", key] = (arch, jtrainer.make_train_step(jcfg, ocfg, n_micro, plan=_jplan(shape)),
+                              (params, jopt.init_opt_state(params, ocfg), batch))
+    for c in MOE_CASES:
+        jobs["moe", c] = ("moe", functools.partial(jmoe.moe_apply, m=MOE, plan=_jplan(c[0]), drop_tokens=True),
+                          jax.tree.map(jnp.asarray, _moe_inputs(*c)))
+    jobs["moe", "plain"] = ("moe", functools.partial(jmoe.moe_apply, m=MOE, plan=None, drop_tokens=True),
+                            jobs["moe", MOE_CASES[0]][2])
+    arch = PREFILL_ARCHS[1]
+    jobs["prefill", arch] = ("prefill", functools.partial(jtf.prefill_step, cfg=_cfgs(arch)[1],
+                                                          plan=_jplan((2, 2))),
+                             (jax.tree.map(jnp.asarray, _tree(arch)), jnp.asarray(_batch(arch, 1)["tokens"])))
+    for group in dict.fromkeys(job[0] for job in jobs.values()):
+        keys = [k for k, job in jobs.items() if job[0] == group]
+        args = [jobs[k][2] for k in keys]
+
+        def program(args, keys=keys):
+            return [jobs[k][1](*a) for k, a in zip(keys, args)]
+
+        for key, out in zip(keys, _compile(program, args)(args)):
+            if key[0] == "train":
+                p, s, m = out
+                out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "params": jax.tree.map(np.asarray, p), "m": jax.tree.map(np.asarray, s["m"]),
+                       "v": jax.tree.map(np.asarray, s["v"]), "step": int(s["step"])}
+            elif key[0] == "moe":
+                out = (np.asarray(out[0]), float(out[1]))
+            else:
+                out = np.asarray(out)
+            _REF[key] = out
+    return _REF
+
+
+def _ref_step(case) -> dict:
+    return _reference()["train", _ref_key(case)]
+
+
+COMPRESS_DRIVER = r"""
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.train.compression import make_compressed_allreduce
+g = np.load(sys.argv[1])
+# compiled at XLA's backend level 0: at higher levels LLVM fuses the carry's
+# multiply and subtract, which the eager reference does not
+reduce_fn = jax.jit(make_compressed_allreduce(jax.make_mesh((4,), ("data",)), "data")).lower(
+    {"w": jnp.asarray(g)}, {"w": jnp.zeros_like(g)}).compile({"xla_backend_optimization_level": 0})
+grads, err = {"w": jnp.asarray(g)}, {"w": jnp.zeros_like(g)}
+out = {}
+for i in range(int(sys.argv[3])):
+    g_hat, err = reduce_fn(grads, err)
+    out[f"g{i}"], out[f"e{i}"] = np.asarray(g_hat["w"]), np.asarray(err["w"])
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Every world, started at once after the reference's checkpoint is
+    written; the reference's compressed all-reduce starts beside them in a
+    subprocess with four host devices."""
+    root = tmp_path_factory.mktemp("lm_worlds")
+    ref = _ref_step(ELASTIC_SOURCE)
+    ref_dir = jckpt.save(str(root / "ref_ckpt"), ref["step"],
+                         {"params": ref["params"], "opt": {"step": np.int32(ref["step"]),
+                                                           "m": ref["m"], "v": ref["v"]}})
+    np.save(root / "grads.npy", _compress_grads())
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    compress = subprocess.Popen(
+        [sys.executable, "-c", COMPRESS_DRIVER, str(root / "grads.npy"), str(root / "compress.npz"),
+         str(COMPRESS_ROUNDS)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    worlds = {s: World(s, root / f"{s[0]}x{s[1]}", _world_cases(s, ref_dir)) for s in SHAPES}
+    yield {"worlds": worlds, "ref_dir": ref_dir, "compress": compress, "root": root}
+    for w in worlds.values():
+        w.kill()
+    if compress.poll() is None:
+        compress.kill()
+    compress.wait()
+
+
+# ---------------------------------------------------------------------- #
+# (b) The sharded train step
+# ---------------------------------------------------------------------- #
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def _assert_q8(got, want, what: str) -> None:
+    """int8 moments: scales within rtol 1e-4, each decoded entry within one
+    code step of the reference's."""
+    got, want = _leaves(got), _leaves(want)
+    assert got.keys() == want.keys()
+    for path in want:
+        if path.endswith("/scale"):
+            np.testing.assert_allclose(got[path], want[path], rtol=1e-4, err_msg=what + path)
+    for path in [p for p in want if p.endswith("/q")]:
+        base = path[:-2]
+        dec = lambda t: t[base + "/q"].astype(np.float32) * t[base + "/scale"]  # noqa: E731
+        step = want[base + "/scale"] * (1 + 1e-4)
+        assert np.all(np.abs(dec(got) - dec(want)) <= step + 1e-12), what + path
+
+
+def _assemble(ranks: list[dict], case, key: str = "local") -> dict:
+    """The whole parameter tree (reference layout, numpy) from every rank's
+    blocks (``local``, or ``local_m`` / ``local_v`` of f32 moments), each
+    written at its place."""
+    specs = ranks[0]["train"][case]["specs"]
+    sizes = {"data": case[0][0], "model": case[0][1]}
+    whole = {}
+    for name, spec in specs.items():
+        first = ranks[0]["train"][case][key][name]
+        out = np.zeros([n * (sizes[a] if a else 1) for n, a in zip(first.shape, spec)], np.float32)
+        for r in ranks:
+            pos = dict(zip(("data", "model"), r["coords"]))
+            idx = tuple(slice(pos[a] * n, (pos[a] + 1) * n) if a else slice(None)
+                        for n, a in zip(first.shape, spec))
+            out[idx] = r["train"][case][key][name].numpy()
+        whole[name] = out
+    return weights.reference_tree(ttf.Transformer(_cfgs(case[1])[0], device="meta"), whole)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1]}-{c[2]}-m{c[3]}"
+                         + (f"-{c[4]}" if c[4] else ""))
+def test_sharded_train_step_matches_the_reference(run, case):
+    want = _ref_step(case)
+    ranks = run["worlds"][case[0]].results()
+    got = ranks[0]["train"][case]
+    expect_mode = case[4] or ("seq" if case[1] == "smollm-360m" and case[0][1] == 2 else "head")
+    assert got["mode"] == expect_mode
+    for r in ranks:  # every rank reports the global loss and norm
+        assert r["train"][case]["loss"] == got["loss"]
+        assert r["train"][case]["grad_norm"] == got["grad_norm"]
+    np.testing.assert_allclose(got["loss"], want["loss"], **LOSS)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], **LOSS)
+    params = _leaves(_assemble(ranks, case))
+    w = _leaves(want["params"])
+    assert params.keys() == w.keys()
+    for path in w:
+        np.testing.assert_allclose(params[path], w[path], err_msg=path, **PARAMS)
+    if case[2] == "int8":  # to_reference gathers the same tree on every rank
+        for r in ranks:
+            g = _leaves(r["train"][case]["params"])
+            assert all(np.array_equal(g[k], params[k]) for k in w)
+        _assert_q8(got["m"], want["m"], "m")
+        _assert_q8(got["v"], want["v"], "v")
+        return
+    for moment in ("m", "v"):
+        have, ref = _leaves(_assemble(ranks, case, "local_" + moment)), _leaves(want[moment])
+        assert have.keys() == ref.keys()
+        for path in ref:
+            np.testing.assert_allclose(have[path], ref[path], rtol=MOMENTS["rtol"],
+                                       atol=MOMENTS["atol_share"] * np.abs(ref[path]).max(),
+                                       err_msg=moment + path)
+
+
+def _block_key(spec, coords, shape) -> tuple:
+    """Which block of a leaf split by ``spec`` the rank at ``coords`` holds."""
+    pos = {"data": coords[0], "model": coords[1]}
+    return tuple(pos[a] if a is not None else 0 for a in spec)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_replicas_are_bit_identical_across_ranks(run, shape):
+    """After a step, every rank holding the same block of a parameter (or
+    of its moments) holds the same bits, and the blocks differ where
+    the spec splits."""
+    ranks = run["worlds"][shape].results()
+    for case in [c for c in TRAIN_CASES if c[0] == shape]:
+        specs = ranks[0]["train"][case]["specs"]
+        for name, spec in specs.items():
+            held = {}
+            for r in ranks:
+                res = r["train"][case]
+                key = _block_key(spec, r["coords"], shape)
+                leaves = [res["local"][name]]
+                for moment in (res["local_m"][name], res["local_v"][name]):
+                    leaves += [moment["q"], moment["scale"]] if case[2] == "int8" else [moment]
+                if key in held:
+                    for a, b in zip(held[key], leaves):
+                        assert torch.equal(a, b), (case, name, key)
+                else:
+                    held[key] = leaves
+            assert len(held) == int(np.prod([shape[0] if a == "data" else shape[1]
+                                             for a in spec if a is not None])), (case, name)
+
+
+# ---------------------------------------------------------------------- #
+# (c) Grouped MoE dispatch, (d) prefill with a plan
+# ---------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("moe_case", MOE_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-T{c[1]}")
+def test_grouped_moe_dispatch_matches_the_reference(run, moe_case):
+    shape, per = moe_case
+    y, aux = _reference()["moe", moe_case]
+    if moe_case == MOE_CASES[0]:  # the groups decide which tokens drop
+        assert not np.allclose(y, _reference()["moe", "plain"][0], rtol=1e-3)
+    for r in run["worlds"][shape].results():
+        got = r["moe"][moe_case]
+        np.testing.assert_allclose(got["y"].numpy(), y, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(float(got["aux"]), aux, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_prefill_step_with_a_plan(run, arch):
+    """On 2 x 2: smollm-360m ("seq" mode) equals the port's unsharded
+    prefill; the MoE arch, whose capacity follows the plan, the
+    reference's prefill under the same plan."""
+    for r in run["worlds"][(2, 2)].results():
+        got = r["prefill"][arch]
+        assert got["logits"].shape == (B, _cfgs(arch)[0].vocab)
+        if arch == "smollm-360m":
+            np.testing.assert_allclose(got["logits"].numpy(), got["plain"].numpy(), rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_allclose(got["logits"].numpy(), _reference()["prefill", arch], rtol=1e-5,
+                                       atol=1e-5)
+
+
+# ---------------------------------------------------------------------- #
+# (e) The compressed all-reduce, (f) the elastic checkpoint
+# ---------------------------------------------------------------------- #
+
+
+def test_compressed_allreduce_matches_the_reference(run):
+    out, _ = run["compress"].communicate(timeout=WORLD_DEADLINE_S)
+    assert run["compress"].returncode == 0, out.decode()
+    want = np.load(run["root"] / "compress.npz")
+    ranks = run["worlds"][(4, 1)].results()
+    g = _compress_grads()
+    exact, bound = g.mean(axis=0), np.abs(g).max() / 127
+    for r in ranks:
+        rounds = r["compress"]
+        assert len(rounds) == COMPRESS_ROUNDS
+        for i, (g_hat, err) in enumerate(rounds):
+            assert np.array_equal(g_hat.numpy(), want[f"g{i}"]), i
+            assert np.array_equal(err.numpy(), want[f"e{i}"][r["coords"][0]]), i
+        assert np.abs(rounds[0][0].numpy() - exact).max() <= bound + 1e-6
+        mean = np.mean([gh.numpy() for gh, _ in rounds], axis=0)
+        np.testing.assert_allclose(mean, exact, atol=bound / 10)
+
+
+def _blocks_equal(local, whole, specs, plan: MeshPlan, what) -> None:
+    """Each leaf of ``local`` (this rank's restored blocks) is its block of
+    ``whole``, bit for bit."""
+    if isinstance(local, dict):
+        assert local.keys() == whole.keys(), what
+        for k in local:
+            _blocks_equal(local[k], whole[k], specs[k], plan, f"{what}/{k}")
+        return
+    assert np.array_equal(local.detach().numpy(), local_shard(np.asarray(whole), specs, plan)), what
+
+
+def test_elastic_checkpoint_crosses_meshes_and_packages(run):
+    """Saved under 2 x 2 (int8 moments after a step), restored bit for bit
+    under 1 x 4 and 4 x 1; the reference's restore reads the port's
+    checkpoint, and the port restores the reference's onto both meshes."""
+    ranks = run["worlds"][(2, 2)].results()
+    trained = ranks[0]["train"][ELASTIC_SOURCE]
+    saved = {"params": trained["params"], "opt": {"step": np.int32(1), "m": trained["m"], "v": trained["v"]}}
+    want = _ref_step(ELASTIC_SOURCE)
+    ref = {"params": want["params"], "opt": {"step": np.int32(want["step"]), "m": want["m"], "v": want["v"]}}
+    for shape in ELASTIC_SHAPES:
+        for name, whole in (("port", saved), ("reference", ref)):
+            for r in ranks:
+                got = r["elastic"][name, shape]
+                plan = MeshPlan(pod_axis=None, data_axis="data", model_axis="model", pod_size=1,
+                                data_size=shape[0], model_size=shape[1], row_rank=got["coords"][0],
+                                model_rank=got["coords"][1])
+                _blocks_equal(got["tree"], whole, got["specs"], plan, f"{name} {shape}")
+    arch = ELASTIC_SOURCE[1]
+    template = jax.tree.map(jnp.asarray, {"params": _tree(arch), "opt": jopt.init_opt_state(
+        jax.tree.map(jnp.asarray, _tree(arch)), jopt.OptimizerConfig(moment_dtype="int8"))})
+    tree, meta = jckpt.restore(ranks[0]["elastic"]["path"], template)
+    assert meta["step"] == 1
+    a, b = _leaves(jax.tree.map(np.asarray, tree)), _leaves(saved)
+    assert a.keys() == b.keys()
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("window", [0, 16], ids=["global", "local"])
+def test_attention_of_a_sequence_shard_equals_its_rows_of_the_whole(window):
+    """A "seq" rank's queries at an offset against the gathered keys give
+    its rows of the whole sequence's attention: chunked (windowed or not,
+    several key chunks) and banded (S = 8 windows, shards of 2 and 4
+    windows), the same values."""
+    from repro_torch.models import attention as tattn
+
+    gen = torch.Generator().manual_seed(5)
+    B, S_, H, KV, hd = 2, 128, 4, 2, 16
+    q, k, v = (torch.randn((B, S_, n, hd), generator=gen) for n in (H, KV, KV))
+    whole = tattn.chunked_attention(q, k, v, window=window, chunk=32)
+    for parts in (2, 4):
+        per = S_ // parts
+        for r in range(parts):
+            rows = slice(r * per, (r + 1) * per)
+            got = tattn.chunked_attention(q[:, rows], k, v, window=window, chunk=32, q_offset=r * per)
+            torch.testing.assert_close(got, whole[:, rows], rtol=0, atol=0)
+            if window:
+                band = tattn.banded_attention(q[:, rows], k, v, window, q_offset=r * per)
+                torch.testing.assert_close(band, tattn.banded_attention(q, k, v, window)[:, rows],
+                                           rtol=0, atol=0)
+                torch.testing.assert_close(band, whole[:, rows], rtol=1e-5, atol=1e-6)
+
+
+def test_weights_cross_to_any_plan_and_back():
+    """The reference tree goes to every rank's blocks of a plan (built by
+    hand: no world), and the blocks of all ranks, written back at their
+    places, are the tree bit for bit, each place held by as many ranks as
+    the spec leaves it whole over."""
+    arch = "qwen3-moe-235b-a22b"
+    cfg, _ = _cfgs(arch)
+    tree = _tree(arch)
+    full = {k: p.detach() for k, p in weights.params_from_reference(tree, cfg, device="cpu").named_parameters()}
+    for data, model in ((2, 2), (4, 1), (1, 4)):
+        back = {k: torch.zeros_like(v) for k, v in full.items()}
+        held = {k: torch.zeros(v.shape, dtype=torch.int32) for k, v in full.items()}
+        for r in range(data * model):
+            plan = MeshPlan(pod_axis=None, data_axis="data", model_axis="model", pod_size=1,
+                            data_size=data, model_size=model, row_rank=r // model, model_rank=r % model)
+            specs = weights.named_specs(cfg, plan)
+            for name, p in weights.params_from_reference(tree, cfg, device="cpu", plan=plan).named_parameters():
+                idx = []
+                for dim, axis in enumerate(specs[name]):
+                    n = p.shape[dim]
+                    c = 0 if axis is None else plan.axis_rank(axis)
+                    idx.append(slice(c * n, (c + 1) * n))
+                back[name][tuple(idx)] = p.detach()
+                held[name][tuple(idx)] += 1
+        for name, v in full.items():
+            copies = data * model // int(np.prod(
+                [plan.axis_size(a) for a in weights.named_specs(cfg, plan)[name] if a is not None]))
+            assert torch.equal(back[name], v), (data, model, name)
+            assert bool((held[name] == copies).all()), (data, model, name)
