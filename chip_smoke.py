@@ -113,7 +113,14 @@ vocabulary over ``model``, FSDP over ``data``; 2 blocks) and the reduced
 MoE arch held to their unsharded steps, the int8 compressed all-reduce of
 real gradients within its one-shot bound, the checkpoint restored on a
 1 x 4 mesh bit for bit; per rank step ms, the bytes each collective sent
-per step and peak memory.
+per step and peak memory.  Then the dry run and the roofline
+(``roofline``): seven components (smollm-360m's block forward, forward
+and backward, head and optimizer at one rank's microbatch, its decode step,
+a DeepFM step, one ``cfpq`` ``opt_step`` at n = 65,536 through
+``repro_bitmm``) timed on the card beside the bound of their count on
+``meta`` (``repro_torch.roofline.count``; a count above what the card did
+fails), and every single-pod cell of the registry counted and tabled.
+Every phase prints its ``phase_seconds``.
 ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
 device time is timed beside this one's on the same operands; so are the
@@ -141,11 +148,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Published H100 SXM rates (NVIDIA data sheet) for the bounds: HBM3 bytes
-# per second, and INT32 operations per second on the SMs' integer lanes
-# (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SRC = Path(__file__).resolve().parent / "src"
+if not (SRC / "repro_torch").is_dir():
+    sys.exit(f"chip_smoke: no port beside this script ({SRC / 'repro_torch'} "
+             "is missing): run it from a checkout of the repository")
+sys.path.insert(0, str(SRC))
+
+# Published H100 SXM rates (NVIDIA data sheet) for the bounds, in one place:
+# HBM3 bytes per second, INT32 operations on the SMs' integer lanes, float32
+# outside and bf16 on the tensor cores.
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_OPS_PER_S,
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    INT32_OPS_PER_S,
+)
 
 BASE_GRAPH = "pizza"  # the full-width graph is BASE_GRAPH x PIZZA_COPIES
 PIZZA_COPIES = 16
@@ -154,6 +171,14 @@ PIZZA_S_PAIRS = 313  # Query 1's S-pairs on one pizza copy (Hellings)
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, then the phase's result line: its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(phase, phase_seconds=time.perf_counter() - t0)
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -1695,7 +1720,6 @@ def tile_timing(state, launches: int, err: int) -> dict:
 # ---------------------------------------------------------------------- #
 
 SP_SOURCES = 16  # single-source queries per batch, all in pizza copy 0
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def cyk_derives(g, start: str, word: list[str]) -> bool:
@@ -3338,7 +3362,7 @@ def phase_calibrate(dev) -> dict:
     return total
 
 
-HBM_BYTES_PER_MS = 3.35e9  # the H100's published 3.35 TB/s
+HBM_BYTES_PER_MS = HBM_BYTES_PER_S / 1e3
 
 
 def pack_loop(T: torch.Tensor) -> torch.Tensor:
@@ -3385,9 +3409,6 @@ def lm_excess(got, want, rtol: float, atol: float) -> float:
     """The largest ``|got - want| - (atol + rtol |want|)``: at most 0 where
     ``got`` is within the tolerance of ``want`` everywhere."""
     return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
-
-
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense on the tensor cores
 
 
 def lm_step_traffic(cfg, batch: int, prompt_len: int, gen: int) -> dict:
@@ -4579,6 +4600,166 @@ def phase_lm_sharded(dev) -> None:
     emit("lm_sharded", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------- #
+# The dry run and the roofline
+# ---------------------------------------------------------------------- #
+
+ROOFLINE_WORKERS = 6  # worker processes counting the dry-run cells (the machine has 8 cores)
+ROOFLINE_SHARE_LIMIT = 1.05  # bound / measured above this is a counting fault
+ROOFLINE_REPS = 5
+ROOFLINE_CFPQ_N = 65536  # closure_64k
+ROOFLINE_CFPQ_REPS = 2  # about 5.4 s a call (PERF.md §6)
+
+
+def roofline_components(dev) -> list[tuple]:
+    """``(cell, build, reps)`` of the card phase: ``build(device)`` makes
+    the cell's components, ``{name: run it once}``; the same builder on
+    the card and on meta, so the counts are of the very work timed."""
+    from repro_torch.configs import registry
+    from repro_torch.core.closure import opt_step
+    from repro_torch.launch import components, specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import deepfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+
+    lm = registry.get_config(LM_ARCH)
+    train = next(s for s in registry.get_shapes(LM_ARCH) if s.name == "train_4k")
+    # 2 sequences: the 16 x 16 mesh's per-rank microbatch, 256 / 8 / 16
+    mb = train.dim("global_batch") // specs.N_MICRO // 16
+
+    def lm_train(device):
+        # block_fwd, block_fwdbwd, head_fwdbwd and opt share their model
+        return {c.name: c.fn for c in components.lm_components(
+            lm, train, device=device, mb=mb, act_dtype="float32")}
+
+    decode = next(s for s in registry.get_shapes(LM_ARCH) if s.name == "decode_32k")
+    batch, seq = decode.dim("global_batch") // 16, decode.dim("seq_len")
+
+    def lm_decode(device):
+        model = tf.Transformer(lm, device=device).to(torch.bfloat16)
+        cache = tf.init_cache(lm, batch, seq, dtype=torch.bfloat16, device=device)
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        return {"serve_step": lambda: tf.serve_step(model, cache, tokens, seq - 1, lm)}
+
+    rs = registry.get_config("deepfm")
+    examples = next(s for s in registry.get_shapes("deepfm") if s.name == "train_batch").dim("batch") // 16
+
+    def deepfm_train(device):
+        model = deepfm.DeepFM(rs, device=device)
+        ocfg = opt.OptimizerConfig()
+        state = opt.init_opt_state(model, ocfg)
+        gen = None if torch.device(device).type == "meta" else torch.Generator(device=device).manual_seed(7)
+        shape = (examples, rs.n_sparse, rs.multi_hot)
+
+        def draw(fn, *a, dtype):
+            if gen is None:
+                return torch.empty(a[-1], dtype=dtype, device=device)
+            return fn(*a, generator=gen, device=device).to(dtype)
+
+        b = {"sparse_ids": draw(torch.randint, 0, rs.vocab_per_field, shape, dtype=torch.int32),
+             "sparse_mask": draw(torch.rand, shape, dtype=torch.float32).round(),
+             "dense_feat": draw(torch.randn, (examples, rs.n_dense), dtype=torch.float32),
+             "labels": draw(torch.randint, 0, 2, (examples,), dtype=torch.int32)}
+        step = make_train_step(rs, ocfg)
+        return {"train_step": lambda: step(model, state, b)}
+
+    g, tables = specs.cfpq_grammar_tables()
+    n = ROOFLINE_CFPQ_N
+
+    def cfpq_opt(device):
+        # every bit set: the meta count is at full density (meta has no
+        # data), and so is the work these words need
+        Tp = torch.full((g.n_nonterms, n, n // 32), -1, dtype=torch.int32, device=device)
+        return {"opt_step": lambda: opt_step(Tp, tables, n, None)}
+
+    return [((LM_ARCH, "train_4k"), lm_train, ROOFLINE_REPS),
+            ((LM_ARCH, "decode_32k"), lm_decode, ROOFLINE_REPS),
+            (("deepfm", "train_batch"), deepfm_train, ROOFLINE_REPS),
+            (("cfpq", "closure_64k"), cfpq_opt, ROOFLINE_CFPQ_REPS)]
+
+
+def phase_roofline(dev) -> None:
+    """The port's dry run and roofline (``launch/dryrun.py``,
+    ``roofline/analysis.py``), then its counter held to the card.
+
+    First the components of the card phase: each cell's built once on the
+    card with whole parameters (1 x 1, no collectives) and once on
+    ``meta`` with the same shapes; each component counted on meta (FLOPs
+    by dtype, bytes, peak live bytes) and timed on the card (CUDA-event
+    median of ``reps`` runs after a warm-up).  The bound is max(sum FLOPs
+    / peak of their dtype, bytes / HBM); a share bound / measured above
+    ``ROOFLINE_SHARE_LIMIT`` fails the phase (a count above what the card
+    did is a counting fault).  The cfpq component launches ``repro_bitmm``.
+    Then every single-pod cell is counted on meta by ``dryrun.orchestrate``
+    in ``ROOFLINE_WORKERS`` spawned workers, into JSON under
+    ``chiprun_out/roofline/``: one line per cell, the table, the named
+    skips."""
+    import shutil
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.count import Counter
+
+    for cell, build, reps in roofline_components(dev):
+        on_meta = build("meta")  # built outside the count: only the runs are counted
+        on_card = build(dev)
+        for name, fn in on_card.items():
+            t0 = time.perf_counter()
+            with Counter() as c:
+                on_meta[name]()
+            counted = c.summary()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            launches = kops.launches
+            ms = time_ms(fn, reps=reps, warmup=1)
+            peak = torch.cuda.max_memory_allocated() - held
+            bitmm = kops.launches - launches
+            by = counted["flops_by_dtype"]
+            ops_ms = analysis.compute_seconds(counted["flops"], by) * 1e3
+            bytes_ms = counted["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            share = bound / ms
+            emit("roofline_component", arch=cell[0], shape=cell[1], component=name, ms=ms, reps=reps,
+                 flops_by_dtype=by, bytes=counted["bytes_accessed"],
+                 transcendentals=counted["transcendentals"], ops_ms=ops_ms, bytes_ms=bytes_ms,
+                 bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                 share=share, meta_peak_bytes=counted["peak_bytes"], card_peak_extra_bytes=peak,
+                 card_max_memory_allocated=peak + held,
+                 bitmm_launches=bitmm, kernels_counted=counted["kernels"],
+                 seconds=time.perf_counter() - t0)
+            check(share <= ROOFLINE_SHARE_LIMIT,
+                  f"roofline {cell} {name}: the count's bound {bound:.3f} ms exceeds the card's "
+                  f"{ms:.3f} ms (share {share:.3f})")
+            if cell[0] == "cfpq":
+                check(bitmm > 0, "roofline: the cfpq component launched no repro_bitmm")
+        del on_meta, on_card, fn
+        torch.cuda.empty_cache()
+    t_sweep = time.perf_counter()
+    jobs, skips = dryrun.iter_jobs(meshes=("single",))
+    out_dir = Path("chiprun_out") / "roofline" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)  # a job whose JSON exists counts as done
+    failures = dryrun.orchestrate(jobs, str(out_dir), ROOFLINE_WORKERS, timeout=120)
+    check(not failures, f"roofline: cells failed to count: {failures}")
+    results = [json.loads((out_dir / f"{'__'.join(job)}.json").read_text()) for job in jobs]
+    rows = [analysis.compose_row(r, []) for r in results]
+    for r, row in zip(results, rows):
+        emit("roofline_cell", arch=r["arch"], shape=r["shape"], method=r["method"],
+             flops=row.get("flops_dev"), bytes=row.get("bytes_dev"),
+             coll_bytes=row.get("coll_bytes_dev"), args_bytes=row["args_bytes_dev"],
+             temp_bytes=row["hbm_bytes_dev"], fits=row["fits"], dominant=row.get("dominant"),
+             count_s=r["compile_s"])
+    for arch, shape, mesh, why in skips:
+        emit("roofline_skip", arch=arch, shape=shape, mesh=mesh, reason=why)
+    print(analysis.format_table(rows), flush=True)
+    check(all(r["cost"] is not None and r["cost"]["flops"] >= 0 for r in results),
+          "roofline: a single-pod cell was not counted")
+    emit("roofline", cells=len(results), skips=len(skips), sweep_seconds=time.perf_counter() - t_sweep,
+         workers=ROOFLINE_WORKERS, json_dir=str(out_dir))
+
+
 def phase_packing(dev) -> None:
     """``pack_bits`` and ``unpack_bits`` on the main path's all-pairs state
     (Query 1 on pizza x 16: bool ``(7, 15872, 15872)``, 1.76 GB) against
@@ -4652,56 +4833,55 @@ def main() -> None:
         help="only time pack_bits and unpack_bits on the main path's state "
              "against their 32-step forms (no build, no result line)")
     args = parser.parse_args()
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch").is_dir():
-        sys.exit(f"chip_smoke: no port beside this script ({src / 'repro_torch'} "
-                 "is missing): run it from a checkout of the repository")
-    sys.path.insert(0, str(src))
 
-    info = phase_device()
+    t_script = time.perf_counter()
+    info = timed("device", phase_device)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     if args.packing:
         phase_packing(dev)
         return
-    phase_build()
+    timed("build", phase_build)
     base, rows_base = None, {}
     if args.baseline_cu is not None:
-        base, rows_base = load_baselines(args.baseline_cu.resolve())
-    phase_kernel_checks(dev)
-    phase_bitmm_or_checks(dev)
-    tile_err = phase_tile_checks(dev)
-    minplus_err = phase_minplus_checks(dev)
-    phase_count_checks(dev)
-    T, tables, launches = phase_main_path(dev)
-    repair = phase_delta(dev)
-    tile_launches = phase_blocksparse_engine(dev)
-    state = phase_blocksparse_scale(dev)
-    tile_err = max(tile_err, phase_tile_checks(dev, state))
-    tile_row = tile_timing(state, tile_launches, tile_err)
+        base, rows_base = timed("baseline_build", load_baselines, args.baseline_cu.resolve())
+    timed("kernel_checks", phase_kernel_checks, dev)
+    timed("bitmm_or_checks", phase_bitmm_or_checks, dev)
+    tile_err = timed("tile_checks", phase_tile_checks, dev)
+    minplus_err = timed("minplus_checks", phase_minplus_checks, dev)
+    timed("count_checks", phase_count_checks, dev)
+    T, tables, launches = timed("main_path", phase_main_path, dev)
+    repair = timed("delta", phase_delta, dev)
+    tile_launches = timed("blocksparse_engine", phase_blocksparse_engine, dev)
+    state = timed("blocksparse_scale", phase_blocksparse_scale, dev)
+    tile_err = max(tile_err, timed("tile_checks_scale", phase_tile_checks, dev, state))
+    tile_row = timed("tile_timing", tile_timing, state, tile_launches, tile_err)
     del state
     torch.cuda.empty_cache()
     minplus_launches, minplus_row = 0, None
     for backend in ("dense", "frontier", "auto"):
-        n, timing = phase_single_path(
+        n, timing = timed(
+            f"single_path_{backend}", phase_single_path,
             dev, backend, minplus_err if backend == "dense" else None,
             rows_base.get("minplus"))
         minplus_launches += n
         minplus_row = minplus_row or timing
     minplus_row["launches"] = minplus_launches
-    phase_serve(dev)
-    phase_conjunctive(dev)
-    _, count_rows = phase_count(dev, rows_base.get("count_mm"))
-    kernels = phase_kernel_timing(T, tables, launches, repair, base)
+    timed("serve", phase_serve, dev)
+    timed("conjunctive", phase_conjunctive, dev)
+    _, count_rows = timed("count", phase_count, dev, rows_base.get("count_mm"))
+    kernels = timed("kernel_timing", phase_kernel_timing, T, tables, launches, repair, base)
     del T
     torch.cuda.empty_cache()
-    opt = phase_opt(dev)
-    cal = phase_calibrate(dev)
-    phase_lm_serve(dev)
-    phase_lm_train(dev)
-    phase_deepfm_train(dev)
-    phase_gnn_train(dev)
-    phase_lm_sharded(dev)
+    opt = timed("opt", phase_opt, dev)
+    cal = timed("calibrate", phase_calibrate, dev)
+    timed("lm_serve", phase_lm_serve, dev)
+    timed("lm_train", phase_lm_train, dev)
+    timed("deepfm_train", phase_deepfm_train, dev)
+    timed("gnn_train", phase_gnn_train, dev)
+    timed("lm_sharded", phase_lm_sharded, dev)
+    timed("roofline", phase_roofline, dev)
+    emit("script", phase_seconds=time.perf_counter() - t_script)
     # launches on the main paths: the earlier phases', the opt phase's and
     # the calibration's
     for more in (opt, cal):

@@ -50,9 +50,10 @@ from .matrices import ProductionTables, pack_bits, unpack_bits
 
 
 def _mat_dtype(device: torch.device) -> torch.dtype:
-    # bf16 on the card (the tensor cores' type), fp32 on the CPU, where
-    # bf16 matmul is slow — as the reference uses bf16 on the TPU only.
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
+    # bf16 on the card (the tensor cores' type) and on ``meta``, which
+    # stands in for it in the dry run; fp32 on the CPU, where bf16 matmul
+    # is slow — as the reference uses bf16 on the TPU only.
+    return torch.float32 if device.type == "cpu" else torch.bfloat16
 
 
 def _bool_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -91,6 +92,23 @@ def _masked_limit(T: torch.Tensor, max_iters: int | None) -> int:
     return _iter_limit(T, max_iters) + T.shape[-1]
 
 
+def dense_step(T: torch.Tensor, tables: ProductionTables) -> torch.Tensor:
+    """One fixpoint iteration ``T | (T x T)``: the roofline unit of
+    Algorithm 1 (the reference's ``dense_step``)."""
+    b_idx, c_idx = tables.index_tensors(T.device)
+    return T | _scatter_or(_bool_matmul(T[b_idx], T[c_idx]), tables)
+
+
+def frontier_step(T: torch.Tensor, D: torch.Tensor, tables: ProductionTables):
+    """One iteration of :func:`frontier_closure` from the state ``T`` and
+    the entries ``D`` the previous one added: ``(T | new, new & ~T)``."""
+    b_idx, c_idx = tables.index_tensors(T.device)
+    left = _bool_matmul(T[b_idx], D[c_idx])
+    right = _bool_matmul(D[b_idx], T[c_idx])
+    new = _scatter_or(left | right, tables)
+    return T | new, new & ~T
+
+
 def dense_closure(
     T: torch.Tensor, tables: ProductionTables, max_iters: int | None = None
 ) -> torch.Tensor:
@@ -119,17 +137,11 @@ def frontier_closure(
     anything new.  Same fixpoint as :func:`dense_closure`."""
     if tables.n_prods == 0:
         return T
-    b_idx, c_idx = tables.index_tensors(T.device)
     limit = _iter_limit(T, max_iters)
-    T = T.clone()
     D = T.clone()
     it = 0
     while it < limit and bool(D.any()):
-        left = _bool_matmul(T[b_idx], D[c_idx])
-        right = _bool_matmul(D[b_idx], T[c_idx])
-        new = _scatter_or(left | right, tables)
-        D = new & ~T
-        T |= new
+        T, D = frontier_step(T, D, tables)
         it += 1
     return T
 

@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.roofline import count
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bitmm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -128,7 +130,7 @@ def _check_operands(kernel: str, lhs: torch.Tensor, rhs: torch.Tensor,
     if acc is not None:
         named["acc"] = acc
     for name, t in named.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{kernel}: {name} is on {t.device}, not CUDA")
         if t.dtype != torch.int32:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, not int32")
@@ -172,11 +174,25 @@ def _launch(fn, args: tuple, device: torch.device) -> None:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
 
 
+def _meta_cost(kernel: str, B: int, m: int, wk: int, w: int, acc: bool) -> None:
+    """Report a call on ``meta`` tensors to the counter, at full density
+    (meta has no data): the bound's count of ``chip_smoke.py`` with every
+    lhs bit set, so every rhs row read and one OR of a w-word rhs row per
+    lhs bit."""
+    words = B * m * wk + B * 32 * wk * w + B * m * w * (2 if acc else 1)
+    count.kernel(kernel, 4 * words, B * m * 32 * wk * w, "int32")
+
+
 def bitmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: (B, m, k/32) x (B, k, w) int32 -> (B, m, w) int32
-    on the current stream.  Raises on anything the kernel does not take."""
+    on the current stream.  Raises on anything the kernel does not take.
+    On ``meta`` tensors: the empty output, its cost reported to the
+    counter (``roofline/count.py``), no launch."""
     B, m, wk, w = _check_operands("bitmm_cuda", lhs, rhs)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
+    if out.is_meta:
+        _meta_cost("bitmm", B, m, wk, w, acc=False)
+        return out
     _launch(
         library().repro_bitmm,
         (lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, m, wk, w),
@@ -191,9 +207,12 @@ def bitmm_or_cuda(
     """Launch the fused kernel: ``acc | (lhs x rhs)`` with lhs (B, m, k/32),
     rhs (B, k, w) and acc (B, m, w) int32, into a fresh (B, m, w) tensor —
     never into ``acc`` — on the current stream.  Raises on anything the
-    kernel does not take."""
+    kernel does not take.  On ``meta`` tensors as :func:`bitmm_cuda`."""
     B, m, wk, w = _check_operands("bitmm_or_cuda", lhs, rhs, acc)
     out = torch.empty((B, m, w), dtype=torch.int32, device=lhs.device)
+    if out.is_meta:
+        _meta_cost("bitmm_or", B, m, wk, w, acc=True)
+        return out
     _launch(
         library().repro_bitmm_or,
         (lhs.data_ptr(), rhs.data_ptr(), acc.data_ptr(), out.data_ptr(),

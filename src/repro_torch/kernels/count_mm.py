@@ -16,7 +16,7 @@ from pathlib import Path
 import torch
 
 from .bitmm import _launch, library
-from .minplus import _check, _check_indices
+from .minplus import _check, _check_indices, meta_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "count_mm.cu"
 
@@ -56,11 +56,15 @@ def count_mm_cuda(
     (S, rows, C) int32, slab (P,) and row (K,) int64, all contiguous CUDA
     tensors of one device.  An empty product (P, R or C zero) launches
     nothing.  Raises on anything the kernel does not take, an index out of
-    range included."""
+    range included.  On ``meta`` tensors: the empty output, its cost
+    reported to the counter (``minplus.meta_cost``)."""
     _check(lhs, base, slab, row, acc, "count_mm_cuda", torch.int32)
-    _check_indices(base, slab, row, "count_mm_cuda")
     P, R, _ = lhs.shape
     out = torch.empty((P, R, base.shape[2]), dtype=torch.int32, device=lhs.device)
+    if out.is_meta:
+        meta_cost("count_mm", lhs, base, acc, "int32")
+        return out
+    _check_indices(base, slab, row, "count_mm_cuda")
     if out.numel():
         count_mm_launch(lhs, base, slab, row, acc, out)
     return out

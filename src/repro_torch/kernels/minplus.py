@@ -13,6 +13,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.roofline import count
+
 from .bitmm import _launch, library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
@@ -33,7 +35,7 @@ def _check(lhs, base, slab, row, acc, kernel: str = "minplus_cuda",
     for name, t in named.items():
         if t is None:
             continue
-        if t.device.type != "cuda" or t.device != lhs.device:
+        if t.device.type not in ("cuda", "meta") or t.device != lhs.device:
             raise ValueError(
                 f"{kernel}: {name} is on {t.device}, lhs on {lhs.device}; "
                 "all operands must be CUDA tensors of one device"
@@ -70,6 +72,18 @@ def _check(lhs, base, slab, row, acc, kernel: str = "minplus_cuda",
             f"{kernel}: lhs {tuple(lhs.shape)} x base {tuple(base.shape)} is "
             "outside the launch (P <= 65535; counts within int32)"
         )
+
+
+def meta_cost(kernel: str, lhs, base, acc, dtype: str) -> None:
+    """Report a call of the min-plus or count kernel on ``meta`` tensors
+    to the counter, at full density (meta has no data): the bound's count
+    of ``chip_smoke.py`` with every lhs entry finite (or non-zero), so the
+    lhs, every named rhs row, ``acc`` and the output moved once, and two
+    operations per candidate (p, i, k, j)."""
+    P, R, K = lhs.shape
+    C = base.shape[2]
+    words = P * R * K + P * K * C + P * R * C * (1 if acc is None else 2)
+    count.kernel(kernel, 4 * words, 2 * P * R * K * C, dtype)
 
 
 def _check_indices(base, slab, row, kernel: str = "minplus_cuda") -> None:
@@ -117,11 +131,15 @@ def minplus_cuda(
     lhs (P, R, K) and base (S, rows, C) f32, slab (P,) and row (K,) int64,
     all contiguous CUDA tensors of one device.  An empty product (P, R or
     C zero) launches nothing.  Raises on anything the kernel does not take,
-    an index out of range included."""
+    an index out of range included.  On ``meta`` tensors: the empty
+    output, its cost reported to the counter (:func:`meta_cost`)."""
     _check(lhs, base, slab, row, acc)
-    _check_indices(base, slab, row)
     P, R, _ = lhs.shape
     out = torch.empty((P, R, base.shape[2]), dtype=torch.float32, device=lhs.device)
+    if out.is_meta:
+        meta_cost("minplus", lhs, base, acc, "float32")
+        return out
+    _check_indices(base, slab, row)
     if out.numel():
         minplus_launch(lhs, base, slab, row, acc, out)
     return out

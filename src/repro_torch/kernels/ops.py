@@ -3,7 +3,9 @@
 A wrapper takes its kernel's plain torch version (``ref.py``) only for
 tensors on the CPU — because the caller asked for the CPU.  On a CUDA
 tensor it launches the hand-written kernel or raises; there is no
-fallback.  ``launches``, ``or_launches``, ``tile_launches``,
+fallback.  On ``meta`` tensors it returns an empty output of the right
+shape and reports the kernel's cost to ``roofline/count.py`` (the dry
+run's count), launching nothing.  ``launches``, ``or_launches``, ``tile_launches``,
 ``minplus_launches`` and ``count_mm_launches`` count the launches of each
 kernel in this process, so a run can show that its main path went through
 the kernel.
@@ -39,7 +41,7 @@ def bitmm(lhs_packed: torch.Tensor, rhs_packed: torch.Tensor) -> torch.Tensor:
     if lhs_packed.device.type == "cpu" and rhs_packed.device.type == "cpu":
         return _ref.bitmm_ref(lhs_packed, rhs_packed)
     out = bitmm_cuda(lhs_packed, rhs_packed)
-    launches += 1
+    launches += out.is_cuda
     return out
 
 
@@ -52,7 +54,7 @@ def bitmm_or(
     if all(t.device.type == "cpu" for t in (lhs_packed, rhs_packed, acc_packed)):
         return _ref.bitmm_or_ref(lhs_packed, rhs_packed, acc_packed)
     out = bitmm_or_cuda(lhs_packed, rhs_packed, acc_packed)
-    or_launches += 1
+    or_launches += out.is_cuda
     return out
 
 
@@ -70,9 +72,9 @@ def _bad_pairs(tiles, l_idx, r_idx, seg, n_out: int) -> torch.Tensor:
 def tile_work(tile: int, cap: int, device: torch.device) -> TileWork | None:
     """The work buffers of one block-sparse fixpoint's chunks of at most
     ``cap`` output blocks of ``tile``-edge tiles: a :class:`TileWork` on
-    the card (allocated and zeroed once), None on the CPU, whose plain
-    version needs none."""
-    return TileWork(tile, cap, device) if device.type == "cuda" else None
+    the card (allocated and zeroed once) or on ``meta``, None on the CPU,
+    whose plain version needs none."""
+    return None if device.type == "cpu" else TileWork(tile, cap, device)
 
 
 def tile_contract_chunk(
@@ -112,7 +114,7 @@ def tile_contract_chunk(
     if work is None:
         raise ValueError("tile_contract_chunk: a chunk on the card needs its TileWork")
     out = tile_chunk_cuda(tiles, l_idx, r_idx, seg, out_slot, out_exists, n_out, work)
-    tile_launches += 1
+    tile_launches += out[0].is_cuda
     return out
 
 
@@ -164,7 +166,7 @@ def minplus(
     if all(t.device.type == "cpu" for t in operands):
         return _ref.minplus_ref(lhs, base, slab, row, acc)
     out = minplus_cuda(lhs, base, slab, row, acc)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         minplus_launches += 1
     return out
 
@@ -188,6 +190,6 @@ def count_mm(
     if all(t.device.type == "cpu" for t in operands):
         return _ref.count_mm_ref(lhs, base, slab, row, acc)
     out = count_mm_cuda(lhs, base, slab, row, acc)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         count_mm_launches += 1
     return out

@@ -14,6 +14,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.roofline import count
+
 from .bitmm import _launch, library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tile_bitmm.cu"
@@ -28,7 +30,7 @@ TILES = (32, 64, 128)
 
 def _check(named: dict, dtype: torch.dtype, dim: int, device: torch.device) -> None:
     for name, t in named.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"tile_chunk_cuda: {name} is on {t.device}, not CUDA")
         if t.device != device:
             raise ValueError(
@@ -114,7 +116,9 @@ def tile_chunk_cuda(
     outside ``store``, or an output's ``out_slot`` lies outside it (the
     kernel skips such a pair or old tile).  The views stay valid until the
     next call's launch, which zeroes their buffer.  Raises on anything the
-    kernel does not take."""
+    kernel does not take.  On ``meta`` tensors: views of ``work`` of the
+    outputs' shapes, the cost reported to the counter
+    (``roofline/count.py``), no launch."""
     dev = store.device
     B, cap = work.tile, work.cap
     p = _check_pairs(store, l_idx, r_idx, seg, B, dev)
@@ -128,6 +132,13 @@ def tile_chunk_cuda(
     if work.bufs.device != dev:
         raise ValueError(f"tile_chunk_cuda: work on {work.bufs.device}, store on {dev}")
     cur, other = work.bufs[work.turn], work.bufs[1 - work.turn]
+    if store.is_meta:
+        # the cost at full density (meta has no data): both tiles of every
+        # pair read, each output read and written, one OR of a W-word row
+        # per lhs bit
+        W = B // 32
+        count.kernel("tile_contract", 4 * (2 * p + 2 * n_out) * B * W, p * B * B * W, "int32")
+        return cur[work.head:].view(cap, B, W)[:n_out], cur[: 2 * cap + 1]
     _launch(
         library(SOURCE, ENTRIES).repro_tile_contract,
         (store.data_ptr(), l_idx.data_ptr(), r_idx.data_ptr(), seg.data_ptr(),

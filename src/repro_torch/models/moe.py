@@ -90,7 +90,11 @@ def moe_apply(p, x: torch.Tensor, m: MoEConfig, drop_tokens: bool = True, plan=N
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
 
     # Switch-style load-balance auxiliary loss, over every token of the batch
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=E).float()
+    # (index_add_ of ones rather than bincount, which has no meta kernel:
+    # the counts are integers below 2^24, exact in f32 in any order)
+    routed = expert_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, routed, torch.ones(routed.shape, dtype=torch.float32, device=dev))
     if plan is None:
         density = counts / (T * k)
         router_frac = probs.mean(dim=0)

@@ -55,6 +55,8 @@ def _stack(leaves):
         return {k: _stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
     if isinstance(leaves[0], np.ndarray):
         return np.stack(leaves)
+    if leaves[0].is_meta:  # the stack's shape, without torch.stack's slow meta kernel
+        return leaves[0].new_empty((len(leaves), *leaves[0].shape))
     return torch.stack(leaves)
 
 

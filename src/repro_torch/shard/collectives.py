@@ -22,12 +22,19 @@ replica of a block holds the same bits.
 Each call counts, under its call-site name, the bytes this rank handed
 the collective (a group of one rank sends nothing) and the call itself,
 backward passes included, in ``plans.exchanged`` and
-``plans.exchange_calls``.
+``plans.exchange_calls``, and reports itself to ``roofline/count.py``.
+
+On ``meta`` tensors the calls are shape-only: they return outputs of the
+gathered or reduced shape and make no ``torch.distributed`` call, so a
+plan without process groups (``launch/mesh.py::production_plan``) runs
+the sharded step at one rank's shapes, and the dry run counts it.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.roofline import count
 
 from .plans import P, _all_gather, note
 
@@ -62,7 +69,9 @@ def all_gather(x: torch.Tensor, dim: int, plan, axes, name: str) -> torch.Tensor
         xm = x.movedim(dim, 0).contiguous()
         note(name, xm, size)
         out = xm.new_empty((size * xm.shape[0], *xm.shape[1:]))
-        _all_gather(out, xm, grp)
+        count.collective("all-gather", out.numel() * out.element_size(), size)
+        if not out.is_meta:
+            _all_gather(out, xm, grp)
     return out.movedim(0, dim)
 
 
@@ -73,7 +82,9 @@ def all_reduce(x: torch.Tensor, plan, axes, name: str, op: str = "sum") -> torch
     with torch.no_grad():
         out = x.clone(memory_format=torch.contiguous_format)
         note(name, out, size)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=grp)
+        count.collective("all-reduce", out.numel() * out.element_size(), size)
+        if not out.is_meta:
+            dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=grp)
     return out
 
 

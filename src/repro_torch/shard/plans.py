@@ -49,6 +49,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.roofline import count
+
 INF = float("inf")
 
 #: bytes each exchange sent from this rank, and its calls, by call-site
@@ -437,6 +439,8 @@ class MeshPlan(_Layout):
     def _note(self, name, sent):
         note(name, sent)
 
+    # On meta tensors the three are shape-only (no torch.distributed
+    # call), as in shard/collectives.py: the dry run's plans have no groups.
     def _gather(self, x, axis):
         group, size = (
             (self.row_group, self.row_size) if axis == "row"
@@ -445,20 +449,26 @@ class MeshPlan(_Layout):
         x = x.contiguous()
         # the gather concatenates along dim 0
         out = x.new_empty((size * x.shape[0], *x.shape[1:]))
-        _all_gather(out, x, group)
+        count.collective("all-gather", out.numel() * out.element_size(), size)
+        if not out.is_meta:
+            _all_gather(out, x, group)
         return out.view(size, *x.shape)
 
     def _sum_rows(self, x):
         import torch.distributed as dist
 
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.row_group)
+        count.collective("all-reduce", x.numel() * x.element_size(), self.row_size)
+        if not x.is_meta:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.row_group)
         return x
 
     def any_world(self, flags):
         import torch.distributed as dist
 
         self._note("any_world", flags)
-        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.mesh_group)
+        count.collective("all-reduce", flags.numel() * flags.element_size(), self.world)
+        if not flags.is_meta:
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.mesh_group)
         return flags
 
     def check_same(self, what: str, value) -> None:

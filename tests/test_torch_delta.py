@@ -133,11 +133,12 @@ def test_ops_bitmm_or_off_cpu_never_takes_plain_version():
     rhs = torch.empty((1, 128, 4), dtype=torch.int32, device="meta")
     acc = torch.empty((1, 64, 4), dtype=torch.int32, device="meta")
     before = ops.or_launches
-    with pytest.raises(ValueError, match="not CUDA"):
-        ops.bitmm_or(lhs, rhs, acc)
     with pytest.raises(ValueError, match="not CUDA"):  # one operand off the CPU
         ops.bitmm_or(lhs.new_zeros(lhs.shape, device="cpu"),
                      rhs.new_zeros(rhs.shape, device="cpu"), acc)
+    # meta operands (the dry run's): an empty output, no launch
+    out = ops.bitmm_or(lhs, rhs, acc)
+    assert out.is_meta and out.shape == acc.shape
     assert ops.or_launches == before
 
 

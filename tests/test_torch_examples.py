@@ -2,7 +2,9 @@
 the CPU at their smallest sizes: the quickstart's Fig. 9 relation (held
 against the reference's on the same Fig. 5 query), the ontology suite
 against the port's Hellings, the stream's reads after writes against a
-fresh engine, and the async server's answers against a pinned engine."""
+fresh engine, and the async server's answers against a pinned engine.
+The LM training example's resume claim at 6 steps: killed and run again,
+it reproduces the uninterrupted run's losses bit for bit."""
 from __future__ import annotations
 
 import asyncio
@@ -95,3 +97,60 @@ def test_async_server_answers_equal_a_pinned_engine(capsys):
                                   "stream_cfpq_torch", "serve_cfpq_torch"])
 def test_examples_default_to_the_card(name):
     assert _example(name).parse_args([]).device == "cuda"
+
+
+class Killed(Exception):
+    """The simulated kill of a training run."""
+
+
+def _train_losses(monkeypatch, argv: list[str], kill_after: int | None = None) -> dict[int, float]:
+    """``examples/train_lm_torch.py`` run with ``argv``: each step's loss, by
+    step; with ``kill_after`` the run dies after that step (as a killed
+    process would, before any later checkpoint)."""
+    from repro_torch.train import trainer
+
+    make = getattr(trainer.make_train_step, "original", trainer.make_train_step)
+    losses: dict[int, float] = {}
+
+    def recording(*a, **kw):
+        step_fn = make(*a, **kw)
+
+        def step(model, state, batch):
+            metrics = step_fn(model, state, batch)
+            step_no = int(state["step"]) - 1
+            losses[step_no] = float(metrics["loss"])
+            if kill_after is not None and step_no == kill_after:
+                raise Killed(step_no)
+            return metrics
+
+        return step
+
+    recording.original = make
+    monkeypatch.setattr(trainer, "make_train_step", recording)
+    if kill_after is None:
+        assert _example("train_lm_torch").main(argv) == 0
+    else:
+        with pytest.raises(Killed):
+            _example("train_lm_torch").main(argv)
+    return losses
+
+
+def test_train_lm_resumes_and_reproduces_the_uninterrupted_run(tmp_path, monkeypatch, capsys):
+    """The example's claim at 6 steps: killed after step 3 (its last
+    checkpoint at step 2), then run again with the same ``--ckpt-dir``, it
+    resumes and every loss equals the uninterrupted run's bit for bit."""
+    small = ["--steps", "6", "--batch", "4", "--seq", "32", "--ckpt-every", "2", "--log-every", "1",
+             "--device", "cpu"]
+    whole = _train_losses(monkeypatch, small + ["--ckpt-dir", str(tmp_path / "whole")])
+    assert sorted(whole) == list(range(6))
+    first = _train_losses(monkeypatch, small + ["--ckpt-dir", str(tmp_path / "cut")], kill_after=3)
+    rest = _train_losses(monkeypatch, small + ["--ckpt-dir", str(tmp_path / "cut")])
+    assert "[train] resumed from step 2" in capsys.readouterr().out
+    assert sorted(first) == [0, 1, 2, 3] and sorted(rest) == [2, 3, 4, 5]
+    assert {**first, **rest} == whole and {k: first[k] for k in (2, 3)} == {k: rest[k] for k in (2, 3)}
+
+
+def test_train_lm_example_defaults_to_the_card():
+    mod = _example("train_lm_torch")
+    assert mod.DEFAULTS[mod.DEFAULTS.index("--device") + 1] == "cuda"
+    assert mod.DEFAULTS[mod.DEFAULTS.index("--steps") + 1] == "300"

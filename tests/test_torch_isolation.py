@@ -39,7 +39,8 @@ def test_imports_neither_jax_nor_the_reference(path):
 
 
 # modules run as ``python -m``, whose ``main`` writes the reference CLI's lines
-CLI_MODULES = {ROOT / "src" / "repro_torch" / "launch" / "train.py"}
+CLI_MODULES = {ROOT / "src" / "repro_torch" / name for name in (
+    "launch/train.py", "launch/dryrun.py", "launch/components.py", "roofline/analysis.py")}
 
 
 def _print_lines(tree: ast.AST) -> list[int]:
@@ -85,6 +86,8 @@ def test_the_port_has_the_slice_modules():
         "models/recsys/deepfm.py",
         "models/gnn/common.py", "models/gnn/so3.py", "models/gnn/simple.py",
         "models/gnn/mace.py", "models/gnn/equiformer_v2.py", "models/gnn/api.py",
+        "launch/specs.py", "launch/components.py", "launch/dryrun.py",
+        "roofline/hlo.py", "roofline/count.py", "roofline/analysis.py",
     } <= names
     arch_modules = {p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")}
     assert {f"configs/{m}" for m in arch_modules} <= names

@@ -172,11 +172,16 @@ def test_ops_bitmm_on_cpu_takes_plain_version_without_launching():
 
 
 def test_ops_bitmm_off_cpu_never_takes_plain_version():
+    """Off the CPU the wrapper goes to the kernel's entry: CPU operands
+    mixed with others raise there, and ``meta`` operands (the dry run's)
+    get an empty output of the product's shape and launch nothing."""
     lhs = torch.empty((1, 64, 4), dtype=torch.int32, device="meta")
     rhs = torch.empty((1, 128, 4), dtype=torch.int32, device="meta")
     before = ops.launches
     with pytest.raises(ValueError, match="not CUDA"):
-        ops.bitmm(lhs, rhs)
+        ops.bitmm(lhs.new_zeros(lhs.shape, device="cpu"), rhs)
+    out = ops.bitmm(lhs, rhs)
+    assert out.is_meta and out.shape == (1, 64, 4) and out.dtype == torch.int32
     assert ops.launches == before
 
 

@@ -543,6 +543,39 @@ def test_sharded_train_step_matches_the_reference(run, case):
                                        err_msg=moment + path)
 
 
+#: the 2 x 2 world's train cases without a forced mode, whose step the dry
+#: run counts on a plan without process groups
+SHAPE_ONLY_CASES = [c for c in TRAIN_CASES if c[0] == (2, 2) and c[4] is None]
+
+
+@pytest.mark.parametrize("case", SHAPE_ONLY_CASES, ids=lambda c: f"{c[1]}-{c[2]}-m{c[3]}")
+def test_shape_only_plan_sends_what_the_world_sent(run, case):
+    """The sharded step on ``meta`` tensors under a plan of the world's
+    sizes and each rank's coordinates, with no process group (the dry
+    run's ``launch/specs.py``), records in ``plans.exchanged`` and
+    ``exchange_calls`` what that rank of the gloo world recorded."""
+    from repro_torch.shard import plans
+    from repro_torch.train.trainer import make_train_step
+
+    (data, model), arch, moment, n_micro, _ = case
+    cfg, _ = _cfgs(arch)
+    ocfg = topt.OptimizerConfig(moment_dtype=moment, grad_clip=CLIP.get(n_micro, 1.0))
+    batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+             for k, v in _batch(arch, n_micro).items()}
+    for r in run["worlds"][(data, model)].results():
+        row, col = r["coords"]
+        plan = MeshPlan(None, "data", "model", 1, data, model, row_rank=row, model_rank=col)
+        meta = weights.shard_model(ttf.Transformer(cfg, device="meta"), plan)
+        state = topt.init_opt_state(meta, ocfg)
+        step = make_train_step(cfg, ocfg, n_micro, plan)
+        plans.reset_exchanges()
+        step(meta, state, batch)
+        got = r["train"][case]
+        assert plans.exchanged == got["exchanged"], r["coords"]
+        assert plans.exchange_calls == got["exchange_calls"], r["coords"]
+    plans.reset_exchanges()
+
+
 def _block_key(spec, coords, shape) -> tuple:
     """Which block of a leaf split by ``spec`` the rank at ``coords`` holds."""
     pos = {"data": coords[0], "model": coords[1]}

@@ -22,7 +22,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.moe import moe_apply, moe_specs
 from repro_torch.models.weights import named_specs, params_from_reference, to_reference, training_specs
 from repro_torch.shard import collectives as C
-from repro_torch.shard.plans import MeshPlan, local_shard
+from repro_torch.shard.plans import MeshPlan, exchange_calls, exchanged, local_shard, reset_exchanges
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
 from repro_torch.train.compression import make_compressed_allreduce
@@ -47,8 +47,12 @@ def _train(case: dict, plan: MeshPlan) -> tuple[dict, object, dict]:
         ocfg = opt.OptimizerConfig(moment_dtype=case["moment"], grad_clip=case["clip"])
         model = params_from_reference(case["tree"], cfg, device="cpu", plan=plan)
         state = opt.init_opt_state(model, ocfg)
-        metrics = make_train_step(cfg, ocfg, case["n_micro"], plan)(model, state, case["batch"])
+        step = make_train_step(cfg, ocfg, case["n_micro"], plan)
+        reset_exchanges()
+        metrics = step(model, state, case["batch"])
+        sent = {"exchanged": dict(exchanged), "exchange_calls": dict(exchange_calls)}
         out = {
+            **sent,
             "mode": plan.attn_mode(cfg.n_heads, cfg.hd, False),
             "specs": named_specs(cfg, plan),
             **{k: float(v) for k, v in metrics.items()},
