@@ -112,14 +112,19 @@ with CUDA tensors: ``smollm-360m`` at full width ("seq" attention, the
 vocabulary over ``model``, FSDP over ``data``; 2 blocks) and the reduced
 MoE arch held to their unsharded steps, the int8 compressed all-reduce of
 real gradients within its one-shot bound, the checkpoint restored on a
-1 x 4 mesh bit for bit; per rank step ms, the bytes each collective sent
-per step and peak memory.  Then the dry run and the roofline
-(``roofline``): seven components (smollm-360m's block forward, forward
+1 x 4 mesh bit for bit; the same four ranks then run these checks on
+2 x 1 x 2 and 2 x 2 x 1 ``(pod, data, model)`` meshes (the compressed
+all-reduce over ``pod``, the 2 x 1 x 2 checkpoint restored on 2 x 2), and
+the NCCL world one step on a 1 x 1 x 1 pod mesh; per rank step ms, the
+bytes and calls of each collective per step and peak memory.  Then the
+dry run and the roofline (``roofline``): seven components (smollm-360m's block forward, forward
 and backward, head and optimizer at one rank's microbatch, its decode step,
 a DeepFM step, one ``cfpq`` ``opt_step`` at n = 65,536 through
 ``repro_bitmm``) timed on the card beside the bound of their count on
 ``meta`` (``repro_torch.roofline.count``; a count above what the card did
-fails), and every single-pod cell of the registry counted and tabled.
+fails), and every single-pod cell of the registry and the multi-pod LM
+train and prefill cells (per rank, on the 2 x 16 x 16 mesh) counted and
+tabled.
 Every phase prints its ``phase_seconds``.
 ``--baseline-cu`` names another revision's ``bitmm.cu`` (say, the
 parent commit's, unpacked with ``git archive``): it is built too, and its
@@ -4185,7 +4190,18 @@ LM_SHARDED_BATCH, LM_SHARDED_SEQ, LM_SHARDED_STEPS = 8, 512, 2
 #: part 2 puts four ranks on the one card: smollm-360m's 32 blocks cut to 2
 LM_SHARDED_BLOCKS = 2
 LM_SHARDED_WORLD, LM_SHARDED_RESTORE = (2, 2), (1, 4)
+#: the (pod, data, model) meshes part 2's four ranks also build (the pod
+#: axis pure data parallelism), and the one whose checkpoint is restored
+#: on the LM_SHARDED_WORLD mesh
+LM_SHARDED_POD_MESHES, LM_SHARDED_POD_SAVE = ((2, 1, 2), (2, 2, 1)), (2, 1, 2)
 LM_SHARDED_MOE_ARCH, LM_SHARDED_MOE_SEQ = "qwen3-moe-235b-a22b", 32
+#: meshes whose MoE train step is held at a capacity factor of n_experts /
+#: top_k, where no token group drops a token: the 2 x 2 x 1 mesh's four
+#: groups (G = pod x data) drop other tokens than the unsharded step's one
+#: group, so with drops the two steps are different functions there (the
+#: CPU tests hold that grouped step to the reference's under the same
+#: groups, and ``moe_group_check`` holds its dispatch with drops per group)
+LM_SHARDED_MOE_DROPLESS = ((2, 2, 1),)
 LM_SHARDED_DEADLINE_S = 240  # part 2's world, from its spawn to its last rank's exit
 #: the reference's sharded-step test: loss rtol 1e-5, parameters 5e-4 / 1e-5;
 #: the gradient norm as the loss, and the f32 moments (which move with any
@@ -4337,20 +4353,20 @@ def sharded_round_trip(model, state, cfg, path: str, restore_plan, dev) -> dict:
         saved_equal = equal = all(torch.equal(t, live[k]) for k, t in leaves(got).items())
     else:
         equal = _blocks_match(got, specs, restore_plan, saved)
-    return {"restored_on": [restore_plan.data_size, restore_plan.model_size],
+    return {"restored_on": [restore_plan.axis_size(a) for a in restore_plan.axes],
             "local_bytes": sum(t.numel() * t.element_size() for t in leaves(got).values()),
             "save_s": save_s, "restore_s": restore_s, "saved_equal": bool(saved_equal),
             "bit_equal": bool(equal)}
 
 
-def compressed_check(model, cfg, batch, mesh, plan, dev) -> dict:
-    """The unsharded model's gradient on this data rank's rows of the batch
-    (a real gradient, different on each data rank) through the int8
-    compressed all-reduce over ``data``, against the exact mean (a SUM
-    all-reduce over ``data``, divided): per leaf the error over the
-    reference's one-shot bound max|g| / 127 (max over the data ranks);
-    the largest of them, which must be at most
-    ``LM_SHARDED_COMPRESSED_LIMIT``."""
+def compressed_check(model, cfg, batch, mesh, plan, dev, axis: str = "data") -> dict:
+    """The unsharded model's gradient on this row rank's rows of the batch
+    (a real gradient, different on each row rank) through the int8
+    compressed all-reduce over ``axis`` (``data``, or ``pod``: the
+    reference's cross-pod use), against the exact mean (a SUM all-reduce
+    over ``axis``, divided): per leaf the error over the reference's
+    one-shot bound max|g| / 127 (max over the ``axis`` group); the largest
+    of them, which must be at most ``LM_SHARDED_COMPRESSED_LIMIT``."""
     from repro_torch.models import transformer as tf
     from repro_torch.shard import collectives, plans
     from repro_torch.train.compression import make_compressed_allreduce
@@ -4364,22 +4380,24 @@ def compressed_check(model, cfg, batch, mesh, plan, dev) -> dict:
     for p in model.parameters():
         p.grad = None
     plans.reset_exchanges()
-    g_hat, _ = make_compressed_allreduce(mesh, "data")(grads, {n: torch.zeros_like(g) for n, g in grads.items()})
+    g_hat, _ = make_compressed_allreduce(mesh, axis)(grads, {n: torch.zeros_like(g) for n, g in grads.items()})
     sent = sum(plans.exchanged.values())
     worst = 0.0
     for n, g in grads.items():
-        exact = collectives.all_reduce(g, plan, ("data",), "exact") / plan.row_size
-        gmax = collectives.all_reduce(g.abs().max(), plan, ("data",), "exact", op="max")
+        exact = collectives.all_reduce(g, plan, (axis,), "exact") / plan.axis_size(axis)
+        gmax = collectives.all_reduce(g.abs().max(), plan, (axis,), "exact", op="max")
         err = (g_hat[n] - exact).abs().max()
         worst = max(worst, (err / torch.clamp(gmax / 127, min=1e-30)).item())
-    return {"leaves": len(grads), "sent_bytes": sent, "worst_error_over_bound": worst}
+    return {"axis": axis, "ranks": plan.axis_size(axis), "leaves": len(grads), "sent_bytes": sent,
+            "worst_error_over_bound": worst}
 
 
 def moe_group_check(mcfg, plan, dev) -> dict:
     """The grouped MoE dispatch (``moe_apply`` with ``plan``: one token
-    group per data rank, capacity per group, the experts over ``model``)
-    of a block of ``mcfg``'s widths, its router pulled to expert 0 so that
-    every group drops tokens, on this data rank's rows of the
+    group per row rank, over ``(pod, data)`` or ``data``, capacity per
+    group, the experts over ``model``) of a block of ``mcfg``'s widths, its
+    router pulled to expert 0 so that every group drops tokens, on this
+    row rank's rows of the
     ``LM_SHARDED_BATCH`` x ``LM_SHARDED_MOE_SEQ`` tokens, against the plain
     ``moe_apply`` (no plan) of those rows alone, which is that group's
     computation; ``aux`` against the plain call on the whole batch.  The
@@ -4429,25 +4447,74 @@ def probe_collectives(dev) -> None:
             raise RuntimeError(f"{dist.get_backend()} refused a CUDA tensor for {name}: {e}") from e
 
 
+def mesh_name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def sharded_mesh_part(cfg, mcfg, batch, mesh, plan, dev, axis: str, restore_plan, path: str) -> dict:
+    """One mesh of part 2's ranks: the compressed all-reduce of smollm's
+    real gradients over ``axis``, smollm-360m (``cfg``) and the reduced MoE
+    arch (``mcfg``; dropless on ``LM_SHARDED_MOE_DROPLESS``) held to their
+    unsharded steps, smollm's checkpoint restored on ``restore_plan`` (none
+    when None) and the grouped MoE dispatch against the plain one per
+    group; this rank's coordinate on each mesh axis and the part's
+    seconds."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import data
+
+    t0 = time.perf_counter()
+    model = tf.Transformer(cfg, device=dev, seed=0)
+    out = {"coords": {a: plan.axis_rank(a) for a in plan.axes},
+           "compressed": compressed_check(model, cfg, batch, mesh, plan, dev, axis)}
+    out["smollm"], sharded, state = hold_sharded(cfg, batch, plan, model, LM_SHARDED_STEPS, dev)
+    del model
+    if restore_plan is not None:
+        out["checkpoint"] = sharded_round_trip(sharded, state, cfg, path, restore_plan, dev)
+    del sharded, state
+    # the MoE's weights are drawn on the CPU, whose draws the CPU tests can
+    # hold: with them no group of this batch drops other tokens than the
+    # whole batch does on two groups, so the grouped step equals the
+    # unsharded one; moe_group_check holds a dispatch whose groups do drop
+    # others
+    shape = tuple(plan.axis_size(a) for a in plan.axes)
+    held = mcfg
+    if shape in LM_SHARDED_MOE_DROPLESS:
+        m = mcfg.moe
+        held = dataclasses.replace(mcfg, moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    out["moe"], _, _ = hold_sharded(held, data.lm_batch(held, LM_SHARDED_BATCH, LM_SHARDED_MOE_SEQ, step=0),
+                                    plan, tf.Transformer(held, device="cpu", seed=0).to(dev),
+                                    LM_SHARDED_STEPS, dev)
+    out["moe"]["capacity_factor"] = held.moe.capacity_factor
+    out["moe_groups"] = moe_group_check(mcfg, plan, dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def lm_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
     """One rank of part 2's gloo world (spawned, on the one card): the
     collectives probed on CUDA tensors; on the ``LM_SHARDED_WORLD`` mesh
-    smollm-360m (f32, full width, ``LM_SHARDED_BLOCKS`` blocks) and the
-    reduced MoE arch held to their unsharded steps, the grouped MoE
-    dispatch against the plain one per group, the compressed all-reduce
-    of smollm's real gradients over ``data``, and smollm's
-    checkpoint restored onto the ``LM_SHARDED_RESTORE`` mesh of the same
-    ranks.  Writes its row, or its traceback, as JSON to ``out % rank``."""
+    (``sharded_mesh_part``) smollm-360m (f32, full width,
+    ``LM_SHARDED_BLOCKS`` blocks) and the reduced MoE arch held to their
+    unsharded steps, the compressed all-reduce of smollm's real gradients
+    over ``data`` and smollm's checkpoint restored onto the
+    ``LM_SHARDED_RESTORE`` mesh of the same ranks, and the grouped MoE
+    dispatch against the plain one per group; then the same on each
+    ``(pod, data, model)`` mesh of ``LM_SHARDED_POD_MESHES`` over the same
+    ranks, the all-reduce over ``pod``, and the checkpoint of
+    ``LM_SHARDED_POD_SAVE`` restored on the ``LM_SHARDED_WORLD`` mesh.
+    Writes its row, or its traceback, as JSON to ``out % rank``."""
     import dataclasses
     import traceback
     from datetime import timedelta
 
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import registry
     from repro_torch.configs.reduce import reduce_config
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import transformer as tf
     from repro_torch.shard.plans import MeshPlan
     from repro_torch.train import data
 
@@ -4459,29 +4526,25 @@ def lm_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
         dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                                 world_size=world, timeout=timedelta(seconds=120))
         probe_collectives(dev)
+        # every mesh made up front, in the same order on every rank
         mesh = make_test_mesh(*LM_SHARDED_WORLD)
         plan = MeshPlan.from_mesh(mesh)
-        cfg = dataclasses.replace(registry.get_config(LM_ARCH), dtype="float32", n_layers=LM_SHARDED_BLOCKS)
-        model = tf.Transformer(cfg, device=dev, seed=0)
-        batch = data.lm_batch(cfg, LM_SHARDED_BATCH, LM_SHARDED_SEQ, step=0)
-        compressed = compressed_check(model, cfg, batch, mesh, plan, dev)
-        row, sharded, state = hold_sharded(cfg, batch, plan, model, LM_SHARDED_STEPS, dev)
-        del model
         restore = MeshPlan.from_mesh(make_test_mesh(*LM_SHARDED_RESTORE))
-        round_trip = sharded_round_trip(sharded, state, cfg, os.path.join(os.path.dirname(store), "ckpt"),
-                                        restore, dev)
-        del sharded, state
-        # the MoE's weights are drawn on the CPU, whose draws the CPU tests can
-        # hold: with them no group of this batch drops other tokens than the
-        # whole batch does, so the grouped step equals the unsharded one;
-        # moe_group_check holds a dispatch whose groups do drop others
+        pods = {}
+        for shape in LM_SHARDED_POD_MESHES:
+            pod_mesh = init_device_mesh("cuda", shape, mesh_dim_names=("pod", "data", "model"))
+            pods[shape] = pod_mesh, MeshPlan.from_mesh(pod_mesh)
+        cfg = dataclasses.replace(registry.get_config(LM_ARCH), dtype="float32", n_layers=LM_SHARDED_BLOCKS)
         mcfg = dataclasses.replace(reduce_config(registry.get_config(LM_SHARDED_MOE_ARCH)), dtype="float32")
-        moe_row, _, _ = hold_sharded(mcfg, data.lm_batch(mcfg, LM_SHARDED_BATCH, LM_SHARDED_MOE_SEQ, step=0),
-                                     plan, tf.Transformer(mcfg, device="cpu", seed=0).to(dev),
-                                     LM_SHARDED_STEPS, dev)
-        result = {"rank": rank, "coords": [plan.row_rank, plan.model_rank], "smollm": row,
-                  "moe": moe_row, "moe_groups": moe_group_check(mcfg, plan, dev),
-                  "compressed": compressed, "checkpoint": round_trip}
+        batch = data.lm_batch(cfg, LM_SHARDED_BATCH, LM_SHARDED_SEQ, step=0)
+        tmp = os.path.dirname(store)
+        parts = {mesh_name(LM_SHARDED_WORLD): sharded_mesh_part(
+            cfg, mcfg, batch, mesh, plan, dev, "data", restore, os.path.join(tmp, "ckpt"))}
+        for shape, (pod_mesh, pod_plan) in pods.items():
+            parts[mesh_name(shape)] = sharded_mesh_part(
+                cfg, mcfg, batch, pod_mesh, pod_plan, dev, "pod",
+                plan if shape == LM_SHARDED_POD_SAVE else None, os.path.join(tmp, f"ckpt_{mesh_name(shape)}"))
+        result = {"rank": rank, "parts": parts}
     except BaseException:
         result = {"rank": rank, "error": traceback.format_exc()}
         raise
@@ -4537,7 +4600,8 @@ def phase_lm_sharded(dev) -> None:
         unsharded port step on the same card, weights and batch (loss
         rtol 1e-5, parameters rtol 5e-4 / atol 1e-5), step ms beside the
         unsharded step's, peak memory; its checkpoint saved and restored
-        bit for bit;
+        bit for bit; then one step on a 1 x 1 x 1 ``(pod, data, model)``
+        mesh, held likewise, so that NCCL carries the pod plan's groups;
     (2) a 2 x 2 gloo world of four spawned processes on the one card, with
         CUDA tensors (NCCL takes one rank per card): smollm-360m at full
         width ("seq" attention: 15 heads on 2 model ranks; vocabulary over
@@ -4545,11 +4609,19 @@ def phase_lm_sharded(dev) -> None:
         ``LM_SHARDED_BLOCKS`` blocks, and the reduced MoE arch, each held
         to the unsharded step; the compressed all-reduce of real gradients
         within its one-shot bound; the checkpoint restored on a 1 x 4 mesh
-        bit for bit.  Per rank: step ms, the bytes each collective call
-        site sent per step, peak memory.  Gloo stages CUDA tensors through
-        host memory itself; the port adds no staging of its own."""
+        bit for bit.  The same four ranks then build the 2 x 1 x 2 and
+        2 x 2 x 1 ``(pod, data, model)`` meshes (the batch over ``(pod,
+        data)``, FSDP within a pod, every gradient summed across the
+        pods) and run the same checks there, the compressed all-reduce
+        over ``pod`` and the checkpoint saved on 2 x 1 x 2 restored on the
+        2 x 2 mesh.  Per rank and mesh: step ms, the bytes and calls of
+        each collective call site per step, peak memory.  Gloo stages
+        CUDA tensors through host memory itself; the port adds no staging
+        of its own."""
     import dataclasses
     import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tf
@@ -4576,28 +4648,49 @@ def phase_lm_sharded(dev) -> None:
     torch.cuda.empty_cache()
     emit("lm_sharded", part="nccl_checkpoint", **trip)
     check(trip["bit_equal"], "lm_sharded 1x1: the restored checkpoint differs")
+    # the same step once on a (1, 1, 1) pod mesh: NCCL carries the groups of
+    # every set of the three axes
+    pod_plan = MeshPlan.from_mesh(init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model")))
+    row, _, _ = hold_sharded(cfg, batch, pod_plan, tf.Transformer(cfg, device=dev, seed=0), 1, dev)
+    torch.cuda.empty_cache()
+    emit("lm_sharded", part="nccl_1x1x1", arch=LM_ARCH, params=n_params, world=[1, 1, 1], backend="nccl",
+         batch=LM_SHARDED_BATCH, seq=LM_SHARDED_SEQ, **row)
+    check(sharded_agrees(row), "lm_sharded 1x1x1: the sharded step left the unsharded one's tolerance "
+          f"({ {k: row[k] for k in SHARDED_EXCESSES} })")
 
     with tempfile.TemporaryDirectory() as tmp:
         rows = run_gloo_world(tmp)
     for r in rows:
-        for arch, key in ((LM_ARCH, "smollm"), (LM_SHARDED_MOE_ARCH, "moe")):
-            part = r[key]
-            emit("lm_sharded", part="gloo_2x2", rank=r["rank"], coords=r["coords"], arch=arch,
-                 backend="gloo", staging="inside ProcessGroupGloo (CUDA tensors via host memory)",
-                 reduced={"n_layers": [cfg.n_layers, LM_SHARDED_BLOCKS]} if key == "smollm" else "reduce_config",
-                 **part)
-            check(sharded_agrees(part), f"lm_sharded 2x2 rank {r['rank']} {arch}: the sharded step left "
-                  f"the unsharded one's tolerance ({ {k: part[k] for k in SHARDED_EXCESSES} })")
-        emit("lm_sharded", part="gloo_2x2_extras", rank=r["rank"], moe_groups=r["moe_groups"],
-             compressed=r["compressed"], checkpoint=r["checkpoint"])
-        groups = r["moe_groups"]
-        check(groups["y_excess"] <= 0 and groups["aux_excess"] <= 0 and groups["groups_drop_other_tokens"],
-              f"lm_sharded rank {r['rank']}: the grouped MoE dispatch left the plain one per group ({groups})")
-        check(r["compressed"]["worst_error_over_bound"] <= LM_SHARDED_COMPRESSED_LIMIT,
-              f"lm_sharded rank {r['rank']}: compressed all-reduce past half of max|g| / 127")
-        check(r["checkpoint"]["saved_equal"] and r["checkpoint"]["bit_equal"],
-              f"lm_sharded rank {r['rank']}: the saved or the 1x4-restored state differs")
+        for name, part in r["parts"].items():
+            check_gloo_part(r["rank"], name, part, cfg)
     emit("lm_sharded", part="phase", seconds=time.perf_counter() - t_phase)
+
+
+def check_gloo_part(rank: int, name: str, part: dict, cfg) -> None:
+    """Print and check one rank's ``sharded_mesh_part`` of the mesh
+    ``name``: both archs within the unsharded steps' tolerance, the
+    compressed all-reduce within its bound, the checkpoint bit for bit,
+    the grouped MoE dispatch within the plain one's per group (whose
+    groups must drop other tokens than the whole batch)."""
+    for arch, key in ((LM_ARCH, "smollm"), (LM_SHARDED_MOE_ARCH, "moe")):
+        row = part[key]
+        emit("lm_sharded", part=f"gloo_{name}", rank=rank, coords=part["coords"], arch=arch,
+             backend="gloo", staging="inside ProcessGroupGloo (CUDA tensors via host memory)",
+             reduced={"n_layers": [cfg.n_layers, LM_SHARDED_BLOCKS]} if key == "smollm" else "reduce_config",
+             **row)
+        check(sharded_agrees(row), f"lm_sharded {name} rank {rank} {arch}: the sharded step left "
+              f"the unsharded one's tolerance ({ {k: row[k] for k in SHARDED_EXCESSES} })")
+    groups = part["moe_groups"]
+    emit("lm_sharded", part=f"gloo_{name}_extras", rank=rank, compressed=part["compressed"],
+         checkpoint=part.get("checkpoint"), moe_groups=groups, seconds=part["seconds"])
+    check(groups["y_excess"] <= 0 and groups["aux_excess"] <= 0 and groups["groups_drop_other_tokens"],
+          f"lm_sharded {name} rank {rank}: the grouped MoE dispatch left the plain one per group ({groups})")
+    check(part["compressed"]["worst_error_over_bound"] <= LM_SHARDED_COMPRESSED_LIMIT,
+          f"lm_sharded {name} rank {rank}: compressed all-reduce over "
+          f"{part['compressed']['axis']} past half of max|g| / 127")
+    trip = part.get("checkpoint")
+    check(trip is None or (trip["saved_equal"] and trip["bit_equal"]),
+          f"lm_sharded {name} rank {rank}: the saved or the restored state differs")
 
 
 # ---------------------------------------------------------------------- #
@@ -4691,14 +4784,16 @@ def phase_roofline(dev) -> None:
     / peak of their dtype, bytes / HBM); a share bound / measured above
     ``ROOFLINE_SHARE_LIMIT`` fails the phase (a count above what the card
     did is a counting fault).  The cfpq component launches ``repro_bitmm``.
-    Then every single-pod cell is counted on meta by ``dryrun.orchestrate``
-    in ``ROOFLINE_WORKERS`` spawned workers, into JSON under
-    ``chiprun_out/roofline/``: one line per cell, the table, the named
-    skips."""
+    Then every single-pod cell and the multi-pod LM train and prefill cells
+    (counted per rank, as on one pod) are counted on meta by
+    ``dryrun.orchestrate`` in ``ROOFLINE_WORKERS`` spawned workers, into
+    JSON under ``chiprun_out/roofline/``: one line per cell, a table per
+    mesh, the named skips."""
     import shutil
 
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import production_plan
     from repro_torch.roofline import analysis
     from repro_torch.roofline.count import Counter
 
@@ -4739,6 +4834,9 @@ def phase_roofline(dev) -> None:
         torch.cuda.empty_cache()
     t_sweep = time.perf_counter()
     jobs, skips = dryrun.iter_jobs(meshes=("single",))
+    pods = production_plan(multi_pod=True)
+    jobs += [job for job in dryrun.iter_jobs(meshes=("multi",))[0]
+             if specs.build_cell(job[0], job[1], pods).method == "per_rank"]
     out_dir = Path("chiprun_out") / "roofline" / "dryrun_torch"
     shutil.rmtree(out_dir, ignore_errors=True)  # a job whose JSON exists counts as done
     failures = dryrun.orchestrate(jobs, str(out_dir), ROOFLINE_WORKERS, timeout=120)
@@ -4746,16 +4844,17 @@ def phase_roofline(dev) -> None:
     results = [json.loads((out_dir / f"{'__'.join(job)}.json").read_text()) for job in jobs]
     rows = [analysis.compose_row(r, []) for r in results]
     for r, row in zip(results, rows):
-        emit("roofline_cell", arch=r["arch"], shape=r["shape"], method=r["method"],
+        emit("roofline_cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"], method=r["method"],
              flops=row.get("flops_dev"), bytes=row.get("bytes_dev"),
              coll_bytes=row.get("coll_bytes_dev"), args_bytes=row["args_bytes_dev"],
              temp_bytes=row["hbm_bytes_dev"], fits=row["fits"], dominant=row.get("dominant"),
              count_s=r["compile_s"])
     for arch, shape, mesh, why in skips:
         emit("roofline_skip", arch=arch, shape=shape, mesh=mesh, reason=why)
-    print(analysis.format_table(rows), flush=True)
+    for mesh in ("single", "multi"):
+        print(analysis.format_table([row for row in rows if row["mesh"] == mesh]), flush=True)
     check(all(r["cost"] is not None and r["cost"]["flops"] >= 0 for r in results),
-          "roofline: a single-pod cell was not counted")
+          "roofline: a cell of either mesh was not counted")
     emit("roofline", cells=len(results), skips=len(skips), sweep_seconds=time.perf_counter() - t_sweep,
          workers=ROOFLINE_WORKERS, json_dir=str(out_dir))
 

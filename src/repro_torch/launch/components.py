@@ -175,8 +175,6 @@ def run(arch: str, shape: str, mesh_kind: str, out_dir: str) -> list[dict]:
     if arch == "cfpq":
         comps, per = _cfpq_components(shape, plan), plan.world  # global iteration over ranks
     else:
-        if plan.pod_axis:
-            raise ValueError(f"{arch} x {shape} on the multi-pod mesh: {specs.SKIP_MULTI_POD}")
         cfg = registry.get_config(arch)
         spec = next(s for s in registry.get_shapes(arch) if s.name == shape)
         comps, per = lm_components(cfg, spec, plan), 1

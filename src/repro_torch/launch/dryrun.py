@@ -52,15 +52,12 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: str | None, engine=
     args_bytes = sum(specs.per_rank_bytes(a, s, plan) for a, s in zip(cell.args, cell.in_specs))
     out_bytes = specs.per_rank_bytes(cell.out, cell.out_specs, plan)
     alias = sum(specs.per_rank_bytes(cell.args[i], cell.in_specs[i], plan) for i in cell.donate_argnums)
-    cost = coll = depth = None
-    temp = None
-    if cell.program is not None:
-        counted = specs.count_cell(cell)
-        cost = {"flops": counted["flops"], "bytes_accessed": counted["bytes_accessed"],
-                "transcendentals": counted["transcendentals"],
-                "flops_by_dtype": counted["flops_by_dtype"], "ops": counted["ops"],
-                "kernels": counted["kernels"]}
-        coll, temp, depth = counted["collectives"], counted["peak_bytes"], counted.get("depth")
+    counted = specs.count_cell(cell)
+    cost = {"flops": counted["flops"], "bytes_accessed": counted["bytes_accessed"],
+            "transcendentals": counted["transcendentals"],
+            "flops_by_dtype": counted["flops_by_dtype"], "ops": counted["ops"],
+            "kernels": counted["kernels"]}
+    coll, temp, depth = counted["collectives"], counted["peak_bytes"], counted.get("depth")
     t_count = time.time() - t0 - t_build
     result = _json({
         "arch": arch,
@@ -81,7 +78,6 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: str | None, engine=
         "collectives": coll,
         "note": cell.note,
         "method": cell.method,
-        "reason": cell.reason,
         "depth": depth,
     })
     tag = f"{arch}__{shape}__{mesh_kind}" + (f"__{engine}" if engine else "")

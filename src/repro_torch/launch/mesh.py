@@ -2,11 +2,15 @@
 ``launch/mesh.py``).
 
 Single pod: (data=16, model=16), 256 ranks.  Multi-pod: (pod=2, data=16,
-model=16), 512 ranks; the pod axis carries pure data parallelism.  A
-``DeviceMesh`` needs a live process group of that many ranks, one per
-card under NCCL; ``production_plan`` gives the production meshes' plans
-from their sizes alone, which is all ``param_specs`` and the other specs
-read.  Functions, so importing this module touches no process group.
+model=16), 512 ranks; the pod axis carries pure data parallelism: a
+batch splits over ``(pod, data)``, parameters over ``data`` and ``model``
+within a pod, replicated across pods.  The sharded LM runs on both (its
+plan from ``MeshPlan.from_mesh``).  A ``DeviceMesh`` needs a live process
+group of that many ranks, one per card under NCCL; ``production_plan``
+gives the production meshes' plans from their sizes alone, which is all
+``param_specs`` and the other specs read, and on which the dry run counts
+a rank's sharded step.  Functions, so importing this module touches no
+process group.
 """
 from __future__ import annotations
 

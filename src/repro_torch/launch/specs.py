@@ -17,15 +17,12 @@ Dtype/memory policy (the reference's):
 
 Each count says how it was made (``Cell.method``):
   * ``per_rank``: the step ran under a plan without process groups
-    (``launch/mesh.py::production_plan``), at rank (0, 0)'s shapes, its
-    collectives shape-only (LM train and prefill on the single-pod mesh,
-    CFPQ ``opt``);
+    (``launch/mesh.py::production_plan``), at the first rank's shapes, its
+    collectives shape-only (LM train and prefill on both meshes, CFPQ
+    ``opt``);
   * ``global_over_ranks``: the port's step takes no plan, so the global
     step is counted and divided by the ranks, and the collectives are
-    priced from the specs (:func:`priced_collectives`);
-  * ``skipped``: the LM cells on the multi-pod mesh, whose sharded step
-    refuses a pod axis (``shard/collectives.py::use``); the cell is still
-    built, with its shapes, specs and per-rank argument bytes.
+    priced from the specs (:func:`priced_collectives`).
 
 A step whose cost repeats over blocks or microbatches is counted at two
 depths of each (``Cell.depth``) and extended to its own multilinearly:
@@ -57,10 +54,6 @@ N_MICRO = int(os.environ.get("REPRO_TORCH_N_MICRO", "8"))  # LM train microbatch
 
 META = torch.device("meta")
 
-SKIP_MULTI_POD = ("the port's sharded LM runs on (data, model) meshes: collectives.use "
-                  "refuses a pod axis")
-
-
 @dataclass
 class Cell:
     arch_id: str
@@ -70,12 +63,11 @@ class Cell:
     in_specs: tuple  # a spec tree (of ``P``) per argument
     out: Any  # the step's outputs that stay on the device, global shapes
     out_specs: Any
-    program: Callable | None  # program(**depth) -> a zero-argument step
-    method: str  # per_rank | global_over_ranks | skipped
+    program: Callable  # program(**depth) -> a zero-argument step
+    method: str  # per_rank | global_over_ranks
     depth: dict = field(default_factory=dict)  # {name: full depth} of a repeated cost
     donate_argnums: tuple = ()
     note: str = ""
-    reason: str = ""  # why the count is skipped
 
     @property
     def n_devices(self) -> int:
@@ -236,11 +228,8 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeSpec, plan: MeshPlan) -> 
 
 def _lm_cell(cfg, shape, plan, args, in_specs, out, out_specs, program, depth, donate=(),
              method="per_rank") -> Cell:
-    cell = Cell(cfg.arch_id, shape, plan, args, in_specs, out, out_specs, program, method,
+    return Cell(cfg.arch_id, shape, plan, args, in_specs, out, out_specs, program, method,
                 depth, donate)
-    if plan.pod_axis and method == "per_rank":
-        cell.method, cell.program, cell.reason = "skipped", None, SKIP_MULTI_POD
-    return cell
 
 
 def _lm_prefill_cell(cfg: TransformerConfig, shape: ShapeSpec, plan: MeshPlan) -> Cell:
@@ -298,11 +287,6 @@ def _lm_decode_cell(cfg: TransformerConfig, shape: ShapeSpec, plan: MeshPlan) ->
 # ---------------------------------------------------------------------- #
 
 
-def _flat(plan: MeshPlan):
-    return ((plan.pod_axis, plan.data_axis, plan.model_axis) if plan.pod_axis
-            else (plan.data_axis, plan.model_axis))
-
-
 def _gnn_batch_struct(cfg: GNNConfig, shape: ShapeSpec) -> dict:
     from repro_torch.models.gnn.common import sampled_sizes
     from repro_torch.models.gnn.dims import D_OUT
@@ -342,7 +326,7 @@ def _gnn_cell(cfg: GNNConfig, shape: ShapeSpec, plan: MeshPlan) -> Cell:
     params = api.init_params(cfg, d_feat, generator=None, device=META)
     ocfg = opt.OptimizerConfig()
     state = _opt_state_tree(params, ocfg)
-    bspec = {k: P(_flat(plan), *([None] * (v.dim() - 1))) for k, v in batch.items()}
+    bspec = {k: P(plan.axes, *([None] * (v.dim() - 1))) for k, v in batch.items()}
 
     def program():
         model = api.GNN(cfg, d_feat, device="meta")
@@ -399,8 +383,8 @@ def _recsys_cell(cfg: RecSysConfig, shape: ShapeSpec, plan: MeshPlan) -> Cell:
         batch = _recsys_batch_struct(cfg, 1)
         batch["candidate_ids"] = _meta((_pad(n_cand),), torch.int32)
         bspec = {k: P() for k in batch}
-        bspec["candidate_ids"] = P(_flat(plan))
-        return cell((params, batch), (pspecs, bspec), _meta((_pad(n_cand),)), P(_flat(plan)),
+        bspec["candidate_ids"] = P(plan.axes)
+        return cell((params, batch), (pspecs, bspec), _meta((_pad(n_cand),)), P(plan.axes),
                     lambda m: partial(deepfm.retrieval_scores, m, batch, cfg))
 
     b = shape.dim("batch")
@@ -438,8 +422,7 @@ def _cfpq_cell(cfg: CFPQConfig, shape: ShapeSpec, plan: MeshPlan, engine=None) -
 
     g, tables = cfpq_grammar_tables()
     n = shape.dim("n_nodes")
-    row = (plan.pod_axis, plan.data_axis) if plan.pod_axis else plan.data_axis
-    tspec = P(None, row, plan.model_axis)
+    tspec = P(None, plan.batch, plan.model_axis)
     eng = engine or cfg.engine
     if eng == "opt":
         # packed-state engine (beyond-paper): per-iteration step on packed
@@ -556,8 +539,6 @@ def count_cell(cell: Cell, direct: bool = False) -> dict:
     cells the global step divided by the ranks, with the collectives
     priced from the specs.  A cell with a ``depth`` is counted at the
     corners of ``_DEPTHS`` and extended, unless ``direct``."""
-    if cell.program is None:
-        raise ValueError(f"{cell.arch_id} x {cell.shape.name}: count skipped ({cell.reason})")
     t0 = time.perf_counter()
     if cell.depth and not direct:
         corners = list(itertools.product((0, 1), repeat=len(cell.depth)))

@@ -11,9 +11,9 @@ zero weight.
 Without a plan the tokens are one group.  With a ``MeshPlan`` they are
 ``G = plan.batch_size_divisor`` groups of the flat token order, each
 with its own capacity (one group when ``(T // G) * k < E``): group ``g``
-is data rank ``g``'s rows, so each rank dispatches its own tokens, and
-the experts are split over ``model`` when their count divides
-(``moe_specs``).
+is row rank ``g``'s rows (over ``(pod, data)``, or ``data``), so each
+rank dispatches its own tokens, and the experts are split over ``model``
+when their count divides (``moe_specs``).
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ def moe_apply(p, x: torch.Tensor, m: MoEConfig, drop_tokens: bool = True, plan=N
     False sizes capacity for the worst case, so decode reproduces prefill.
 
     With a ``plan`` (a ``MeshPlan`` of a live mesh), ``p`` holds this rank's
-    blocks (``moe_specs``) and ``x`` this data rank's tokens, a contiguous
+    blocks (``moe_specs``) and ``x`` this row rank's tokens, a contiguous
     range of the flat token order, the same on every rank of its model
     group; ``y`` is theirs and ``aux`` the whole batch's, on every rank.
     """
@@ -100,17 +100,17 @@ def moe_apply(p, x: torch.Tensor, m: MoEConfig, drop_tokens: bool = True, plan=N
         router_frac = probs.mean(dim=0)
     else:
         n_all = T * plan.row_size
-        density = C.all_reduce(counts, plan, ("data",), "moe.aux") / (n_all * k)
-        router_frac = C.psum(probs.sum(dim=0), plan, ("data",), "moe.aux") / n_all
+        density = C.all_reduce(counts, plan, plan.row_axes, "moe.aux") / (n_all * k)
+        router_frac = C.psum(probs.sum(dim=0), plan, plan.row_axes, "moe.aux") / n_all
     aux = E * torch.sum(density * router_frac)
 
-    # the token group this rank dispatches: its own tokens, or every data
+    # the token group this rank dispatches: its own tokens, or every row
     # rank's when the batch is one group
     gathered = plan is not None and plan.row_size > 1 and T * k < E
     if gathered:
-        x = C.gather(x, 0, plan, "data", "moe.tokens")
-        gate = C.gather(gate, 0, plan, "data", "moe.gate")
-        expert_idx = C.all_gather(expert_idx, 0, plan, ("data",), "moe.route")
+        x = C.gather(x, 0, plan, plan.row_axes, "moe.tokens")
+        gate = C.gather(gate, 0, plan, plan.row_axes, "moe.gate")
+        expert_idx = C.all_gather(expert_idx, 0, plan, plan.row_axes, "moe.route")
     Tg = x.shape[0]
 
     if drop_tokens:

@@ -236,11 +236,12 @@ def _seq_parallel(cfg: TransformerConfig, plan: MeshPlan | None) -> bool:
 
 
 def _rows(t: torch.Tensor, plan: MeshPlan | None) -> torch.Tensor:
-    """This data rank's rows of a global batch tensor."""
+    """This row rank's rows (over ``(pod, data)``, or ``data``) of a global
+    batch tensor."""
     if plan is None:
         return t
     if t.shape[0] % plan.row_size:
-        raise ValueError(f"batch {t.shape[0]} does not split over {plan.row_size} data ranks")
+        raise ValueError(f"batch {t.shape[0]} does not split over {plan.row_size} row ranks")
     per = t.shape[0] // plan.row_size
     return t[plan.row_rank * per:(plan.row_rank + 1) * per]
 
@@ -506,7 +507,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     if plan is not None:
         if plan.tp_dim(cfg.vocab) is not None:
             logits = C.gather(logits, 2, plan, "model", "logits")
-        logits = C.gather(logits, 0, plan, "data", "logits")
+        logits = C.gather(logits, 0, plan, plan.row_axes, "logits")
     return logits, aux
 
 
@@ -547,9 +548,9 @@ def _sharded_nll(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
         t = torch.gather(logits, -1, local.clamp(0, per - 1)[..., None])[..., 0] * mine
         nll = m + torch.log(se) - C.psum(t, plan, ("model",), "loss.target")
     mask = (targets >= 0).float()
-    count = torch.clamp(C.all_reduce(mask.sum(), plan, ("data",), "loss.count"), min=1.0)
+    count = torch.clamp(C.all_reduce(mask.sum(), plan, plan.row_axes, "loss.count"), min=1.0)
     total = (nll * mask).sum()
-    value = C.all_reduce(total.detach(), plan, ("data",), "loss.value") / count
+    value = C.all_reduce(total.detach(), plan, plan.row_axes, "loss.value") / count
     # the model group holds the same tokens: each rank counts 1/model of them
     return _global_loss(total / count / plan.model_size, value)
 

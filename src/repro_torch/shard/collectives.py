@@ -19,6 +19,13 @@ gradient over every rank that computed with the same gathered tensor
 after ``backward`` every rank holds its block of ``dL/dθ``, and every
 replica of a block holds the same bits.
 
+On a ``(pod, data, model)`` mesh the pod axis is pure data parallelism,
+as in the reference: a batch's rows split over ``(pod, data)`` (the
+plan's ``row_axes``), parameters split over ``data`` and ``model`` only
+and are replicated across pods, so FSDP gathers stay within a pod and a
+gradient is summed over the pods too.  :func:`group` resolves any set of
+the plan's axes.
+
 Each call counts, under its call-site name, the bytes this rank handed
 the collective (a group of one rank sends nothing) and the call itself,
 backward passes included, in ``plans.exchanged`` and
@@ -48,17 +55,13 @@ def _flat(axes) -> frozenset:
 
 def group(plan, axes):
     """``(group, size, rank)`` of this rank over the mesh ``axes`` (names,
-    or tuples of names): the row axis (``data``, or ``(pod, data)``),
-    ``model``, or both; ``rank`` is this rank's block index there."""
+    or tuples of names), any set of the plan's axes: ``rank`` is this
+    rank's block index there, row-major over the axes in mesh order."""
     axes = _flat(axes)
-    row = frozenset({"pod", "data"} if plan.pod_axis else {"data"})
-    if axes == row:
-        return plan.row_group, plan.row_size, plan.row_rank
-    if axes == {"model"}:
-        return plan.model_group, plan.model_size, plan.model_rank
-    if axes == row | {"model"}:
-        return plan.mesh_group, plan.world, plan.row_rank * plan.model_size + plan.model_rank
-    raise NotImplementedError(f"no process group of this plan spans the axes {sorted(axes)}")
+    if not axes or not axes <= set(plan.axes):
+        raise ValueError(f"the axes {sorted(axes)} are not a set of the mesh's {plan.axes}")
+    inner = tuple(a for a in plan.axes if a in axes)
+    return plan.groups.get(axes), plan.axis_size(inner), plan.axis_rank(inner)
 
 
 def all_gather(x: torch.Tensor, dim: int, plan, axes, name: str) -> torch.Tensor:
@@ -119,8 +122,9 @@ class _Sum(torch.autograd.Function):
         return all_reduce(g, plan, axes, name + ".grad"), None, None, None
 
 
-def gather(x: torch.Tensor, dim: int, plan, axis: str, name: str) -> torch.Tensor:
-    """``all_gather`` along ``dim`` over ``axis``, differentiable."""
+def gather(x: torch.Tensor, dim: int, plan, axis, name: str) -> torch.Tensor:
+    """``all_gather`` along ``dim`` over ``axis`` (a name, or a tuple of
+    names such as the row axes), differentiable."""
     return _Gather.apply(x, dim, plan, (axis,), name)
 
 
@@ -129,15 +133,12 @@ def psum(x: torch.Tensor, plan, axes, name: str) -> torch.Tensor:
     return _Sum.apply(x, plan, tuple(axes), name)
 
 
-MESH_AXES = ("data", "model")
-
-
 class _Use(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, plan, spec, gather_axes, name):
         dims = [(d, a) for d, a in enumerate(spec) if a is not None and a in gather_axes]
         split = {a for a in spec if a is not None and a not in gather_axes}
-        ctx.args = (plan, dims, tuple(a for a in MESH_AXES if a not in split), name)
+        ctx.args = (plan, dims, tuple(a for a in plan.axes if a not in split), name)
         out = p
         for d, a in dims:
             out = all_gather(out, d, plan, (a,), name)
@@ -158,11 +159,8 @@ def use(p: torch.Tensor, plan, spec, gather=("data",), name: str = "fsdp") -> to
     """The parameter block ``p`` (split as ``spec`` says) as a computation
     on this rank uses it: the dims split over an axis of ``gather``
     all-gathered.  Its gradient is summed over the ranks that share the
-    gathered tensor and split back to this rank's block (see the module's
-    docstring).  A plan with a ``pod`` axis raises: the sharded LM runs on
-    ``(data, model)`` meshes."""
-    if plan.pod_axis:
-        raise NotImplementedError("the sharded LM runs on (data, model) meshes, without a pod axis")
+    gathered tensor (the other pods' included) and split back to this
+    rank's block (see the module's docstring)."""
     return _Use.apply(p, plan, tuple(spec), tuple(gather), name)
 
 

@@ -43,6 +43,7 @@ optimizer state in ``models/transformer.py`` and ``train/optimizer.py``.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 from dataclasses import dataclass, field
 
@@ -273,8 +274,9 @@ def _all_gather(out, inp, group) -> None:
     fn(out, inp, group=group)
 
 
-#: process groups made for a mesh layout, by (rank layout, axis names):
-#: groups must be created collectively, so each is made once per process
+#: process groups made for a mesh layout, by (its shape, its ranks, its
+#: axis names, the group's axes): groups must be created collectively, so
+#: each is made once per process
 _GROUPS: dict = {}
 
 
@@ -291,10 +293,11 @@ def _axes_of(mesh) -> tuple[str, ...]:
 
 
 def _group_of(mesh, names: tuple[str, ...], axes: tuple[str, ...]):
-    """The process group of this rank over the mesh axes ``axes``: the
-    mesh's own group for one axis; for several (the row axis ``(pod,
-    data)``, or the whole mesh), a group made once, collectively, for every
-    slice of the mesh along the other axes."""
+    """The process group of this rank over the mesh axes ``axes`` (in mesh
+    order): the mesh's own group for one axis; for several, a group made
+    once, collectively, for every slice of the mesh along the other axes,
+    its ranks row-major over ``axes``; ``None`` (the default group) for a
+    mesh of the whole world."""
     import torch.distributed as dist
 
     if len(axes) == 1:
@@ -302,7 +305,7 @@ def _group_of(mesh, names: tuple[str, ...], axes: tuple[str, ...]):
     ranks = mesh.mesh
     if len(axes) == len(names) and ranks.numel() == dist.get_world_size():
         return None  # the default group spans the mesh
-    key = (tuple(ranks.flatten().tolist()), names, axes)
+    key = (tuple(ranks.shape), tuple(ranks.flatten().tolist()), names, axes)
     if key not in _GROUPS:
         rest = [names.index(a) for a in names if a not in axes]
         inner = [names.index(a) for a in axes]
@@ -326,8 +329,9 @@ def _prod(ranks: torch.Tensor, dims: list[int]) -> int:
 @dataclass(frozen=True)
 class MeshPlan(_Layout):
     """The reference's ``MeshPlan`` on a ``torch.distributed`` device mesh:
-    the axis names and sizes, and this rank's groups and coordinates for
-    the exchanges of :class:`_Layout`."""
+    the axis names and sizes, this rank's coordinates, and its process
+    group over every set of the mesh's axes (``groups``), which the
+    exchanges of :class:`_Layout` and ``shard/collectives.py`` use."""
 
     pod_axis: str | None  # None on single-pod meshes
     data_axis: str
@@ -338,22 +342,24 @@ class MeshPlan(_Layout):
     row_rank: int = 0
     model_rank: int = 0
     mesh: object = field(default=None, repr=False, compare=False)
-    row_group: object = field(default=None, repr=False, compare=False)
-    model_group: object = field(default=None, repr=False, compare=False)
-    mesh_group: object = field(default=None, repr=False, compare=False)
+    #: this rank's process group over each set of mesh axes (a frozenset
+    #: of names); empty on a plan without process groups
+    groups: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def from_mesh(cls, mesh) -> "MeshPlan":
         """The plan of ``mesh`` (a ``DeviceMesh`` whose axes are ``data``
-        and ``model``, with an optional leading ``pod``) for this rank."""
+        and ``model``, with an optional leading ``pod``) for this rank,
+        with its group over every set of the mesh's axes, each made
+        collectively, in the same order on every rank."""
         import torch.distributed as dist
 
         names = _axes_of(mesh)
         sizes = dict(zip(names, mesh.shape))
+        groups = {frozenset(axes): _group_of(mesh, names, axes)
+                  for n in range(1, len(names) + 1) for axes in itertools.combinations(names, n)}
         pod = "pod" if "pod" in sizes else None
-        row_axes = ("pod", "data") if pod else ("data",)
-        row_group = _group_of(mesh, names, row_axes)
-        model_group = mesh.get_group("model")
+        row = frozenset(("pod", "data") if pod else ("data",))
         me = dist.get_rank()
         return cls(
             pod_axis=pod,
@@ -362,13 +368,34 @@ class MeshPlan(_Layout):
             pod_size=sizes.get("pod", 1),
             data_size=sizes["data"],
             model_size=sizes["model"],
-            row_rank=dist.get_group_rank(row_group, me),
-            model_rank=dist.get_group_rank(model_group, me),
+            row_rank=dist.get_group_rank(groups[row], me),
+            model_rank=dist.get_group_rank(groups[frozenset({"model"})], me),
             mesh=mesh,
-            row_group=row_group,
-            model_group=model_group,
-            mesh_group=_group_of(mesh, names, names),
+            groups=groups,
         )
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """The mesh's axis names, in mesh order."""
+        return (self.pod_axis, self.data_axis, self.model_axis) if self.pod_axis else (
+            self.data_axis, self.model_axis)
+
+    @property
+    def row_axes(self) -> tuple[str, ...]:
+        """The axes a batch's rows split over: ``(pod, data)``, or ``data``."""
+        return self.axes[:-1]
+
+    @property
+    def row_group(self):
+        return self.groups.get(frozenset(self.row_axes))
+
+    @property
+    def model_group(self):
+        return self.groups.get(frozenset({self.model_axis}))
+
+    @property
+    def mesh_group(self):
+        return self.groups.get(frozenset(self.axes))
 
     @property
     def batch(self):

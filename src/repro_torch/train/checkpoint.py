@@ -114,7 +114,7 @@ def save(path: str, step: int, tree, meta: dict | None = None, plan=None, specs=
         for _ in whole:  # this rank's part in each leaf's gather
             pass
     C.all_reduce(torch.zeros(1, device=next(iter(leaves.values())).device),
-                 plan, C.MESH_AXES, "checkpoint.published")
+                 plan, plan.axes, "checkpoint.published")
     return final
 
 

@@ -132,9 +132,10 @@ def _write(moment_like, value: torch.Tensor, sqrt_domain: bool = False, row_max=
 
 def _owns(spec: P, plan) -> bool:
     """Whether this rank counts its block of a leaf split by ``spec``: the
-    first rank along every mesh axis the block is held alike over."""
+    first rank along every mesh axis the block is held alike over (the
+    pods included)."""
     split = {a for a in spec if a is not None}
-    return all(plan.axis_rank(a) == 0 for a in C.MESH_AXES if a not in split)
+    return all(plan.axis_rank(a) == 0 for a in plan.axes if a not in split)
 
 
 def global_norm(grads, plan=None, specs=None) -> torch.Tensor:
@@ -147,7 +148,7 @@ def global_norm(grads, plan=None, specs=None) -> torch.Tensor:
     dev = next(iter(grads.values())).device
     sq = sum((torch.sum(torch.square(g.float())) for k, g in grads.items() if _owns(specs[k], plan)),
              torch.zeros((), dtype=torch.float32, device=dev))
-    return torch.sqrt(C.all_reduce(sq, plan, C.MESH_AXES, "grad_norm"))
+    return torch.sqrt(C.all_reduce(sq, plan, plan.axes, "grad_norm"))
 
 
 def _row_max(spec: P, plan):

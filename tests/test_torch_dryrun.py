@@ -14,7 +14,9 @@
   be int32 against uint32).
 * ``model_flops`` equals the reference's exactly, cell by cell.
 * Counting: the depth extension of a reduced train cell equals its direct
-  count; the components of a reduced smollm train step with 2 microbatches,
+  count, on a plan with a pod axis too; a pod plan's per-rank count is
+  the pod-less plan's at half the global batch, its gradient sums' groups
+  twice as large; the components of a reduced smollm train step with 2 microbatches,
   times their multipliers, equal the direct count of the whole step
   (FLOPs and transcendentals exactly, apart from the block's last product,
   which the checkpoint's recompute skips; bytes within 2%: the embedding
@@ -25,6 +27,7 @@
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -203,14 +206,13 @@ def _reduced(arch: str, **kw):
     return dataclasses.replace(reduce_config(registry.get_config(arch)), **kw)
 
 
-def test_depth_extension_equals_the_direct_count(monkeypatch):
-    """A reduced per-rank train cell on a 2 x 2 plan, 4 microbatches of 3
-    blocks: counted at 2-3 microbatches x 1-2 blocks and extended, it
-    equals the whole step counted directly (the peak within 5%: it is
-    not linear in depth, only near it)."""
+def _hold_depth_extension(monkeypatch, plan: MeshPlan) -> None:
+    """A reduced per-rank train cell on ``plan``, 4 microbatches of 3
+    blocks (2 rows each): counted at 2-3 microbatches x 1-2 blocks and
+    extended, it equals the whole step counted directly (the peak within
+    5%: it is not linear in depth, only near it)."""
     monkeypatch.setattr(specs, "N_MICRO", 4)
     cfg = _reduced("internlm2-20b", n_layers=3)
-    plan = MeshPlan(None, "data", "model", 1, 2, 2)
     cell = specs._lm_train_cell(cfg, ShapeSpec("t", "train", (("seq_len", S), ("global_batch", 8))), plan)
     assert cell.depth == {"n_micro": 4, "n_blocks": 3} and cell.method == "per_rank"
     direct = specs.count_cell(cell, direct=True)
@@ -222,6 +224,65 @@ def test_depth_extension_equals_the_direct_count(monkeypatch):
     assert extended["collectives"] == direct["collectives"]
     assert direct["collectives"]["_total"]["count"] > 0
     assert extended["peak_bytes"] == pytest.approx(direct["peak_bytes"], rel=0.05)
+
+
+def test_depth_extension_equals_the_direct_count(monkeypatch):
+    """On a 2 x 2 plan."""
+    _hold_depth_extension(monkeypatch, MeshPlan(None, "data", "model", 1, 2, 2))
+
+
+def test_depth_extension_equals_the_direct_count_on_a_pod_plan(monkeypatch):
+    """On a 2 x 1 x 2 ``(pod, data, model)`` plan."""
+    _hold_depth_extension(monkeypatch, MeshPlan("pod", "data", "model", 2, 1, 2))
+
+
+def test_pod_plan_counts_the_pod_less_plan_at_half_the_batch(monkeypatch):
+    """The pod axis is pure data parallelism: a reduced MoE train cell's
+    per-rank count on a 2 x 2 x 2 plan equals the 2 x 2 plan's at half
+    the global batch (the same rows per rank) in FLOPs, bytes and
+    transcendentals, and its collectives are the same call sites, called
+    as often and moving as many bytes, their groups as large but for
+    those that sum over the rows: every parameter's gradient (its
+    replicas are in the other pod too), the gradient norm, the loss's
+    token count and value and the MoE's router statistics, whose groups
+    are twice as large."""
+    from repro_torch.shard import collectives as C
+    from repro_torch.shard import plans
+
+    monkeypatch.setattr(specs, "N_MICRO", 2)
+    cfg = _reduced("qwen3-moe-235b-a22b", n_layers=2)
+    sizes, used = collections.defaultdict(list), set()
+    note, use = C.note, C.use
+
+    def noted(name, sent, size=None):
+        sizes[name].append(size)
+        note(name, sent, size)
+
+    def used_as(p, plan, spec, gather=("data",), name="fsdp"):
+        used.add(name)
+        return use(p, plan, spec, gather, name)
+
+    monkeypatch.setattr(C, "note", noted)
+    monkeypatch.setattr(C, "use", used_as)
+    counts, groups, sent = {}, {}, {}
+    for pod, batch in ((2, 16), (1, 8)):
+        sizes.clear()
+        plans.reset_exchanges()
+        plan = MeshPlan("pod" if pod > 1 else None, "data", "model", pod, 2, 2)
+        cell = specs._lm_train_cell(cfg, ShapeSpec("t", "train", (("seq_len", S), ("global_batch", batch))), plan)
+        counts[pod] = specs.count_cell(cell, direct=True)
+        groups[pod], sent[pod] = dict(sizes), (dict(plans.exchanged), dict(plans.exchange_calls))
+    plans.reset_exchanges()
+    for key in ("flops", "bytes_accessed", "transcendentals", "flops_by_dtype"):
+        assert counts[2][key] == counts[1][key], key
+    assert counts[2]["flops"] > 0
+    assert sent[2] == sent[1]
+    assert groups[2].keys() == groups[1].keys()
+    rows = {"grad_norm", "loss.count", "loss.value", "moe.aux", "moe.aux.grad"} | {n + ".grad" for n in used}
+    assert rows <= groups[2].keys()
+    for name, got in groups[2].items():
+        want = [k * (2 if name in rows else 1) for k in groups[1][name]]
+        assert got == want, name
 
 
 def test_components_compose_to_the_direct_count():
@@ -297,5 +358,4 @@ def test_cell_shapes_and_bytes_match_the_reference(job, port_cells, reference_ce
     arch, shape, mesh_kind = job
     kind = next(s.kind for s in registry.get_shapes(arch) if s.name == shape)
     per_rank = isinstance(registry.get_config(arch), TransformerConfig) and kind in ("train", "prefill")
-    assert got["method"] == ("skipped" if per_rank and mesh_kind == "multi"
-                             else "per_rank" if per_rank else "global_over_ranks")
+    assert got["method"] == ("per_rank" if per_rank else "global_over_ranks")

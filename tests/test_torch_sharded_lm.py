@@ -9,10 +9,14 @@ equal the port's as tuples for every LM arch at full width.
 Everything else runs in gloo worlds of 2 x 2, 1 x 2 and 4 x 1 ranks
 (``data`` x ``model``): each rank runs tests/torch_lm_worker.py, which
 imports only torch and the port, and the parent holds the results to the
-reference.  The reference runs on one device, its jitted functions given
-a ``MeshPlan`` of the world's sizes built by hand under a 1 x 1 mesh of
-Auto axes: its plan changes its math only through the MoE's token groups,
-so that runs the plan's code paths on one device.  The reduced configs
+reference.  The four ranks of the 2 x 2 world also build a 2 x 1 x 2
+``(pod, data, model)`` mesh, and those of the 4 x 1 world a 2 x 2 x 1
+one, and run the pod cases there.  The reference runs on one device, its
+jitted functions given a ``MeshPlan`` of the world's sizes built by hand
+under a 1 x 1 x 1 ``(pod, data, model)`` mesh of Auto axes: its plan
+changes its math only through the MoE's token groups, so that runs the
+plan's code paths on one device, and a dense arch's step is the
+unsharded one whatever the plan.  The reduced configs
 are the reference's ``reduce_config``, in f32, but gemma's, cut to one
 local and one global layer (``CUT``).  Tolerances: the loss
 and the gradient norm within rtol 1e-5, parameters within rtol 5e-4 and
@@ -72,10 +76,10 @@ B, S = 8, 32
 # XLA's backend optimisation level 0 without the CPU fusion emitters, as in
 # test_torch_train.py: the same programs, compiled in about half the time
 COMPILE_OPTIONS = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
-#: the reference's plans run on one device under this mesh (Auto axes:
-#: ``jax.make_mesh`` without ``axis_types`` makes Explicit ones, which the
-#: reference's sharding constraints reject)
-JMESH = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+#: the reference's plans, with a pod axis or without, run on one device
+#: under this mesh (Auto axes: ``jax.make_mesh`` without ``axis_types``
+#: makes Explicit ones, which the reference's sharding constraints reject)
+JMESH = jax.make_mesh((1, 1, 1), ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
 
 
 # ---------------------------------------------------------------------- #
@@ -174,17 +178,30 @@ TRAIN_CASES = [
     ((1, 2), "smollm-360m", "float32", 1, None),
     ((1, 2), "internlm2-20b", "float32", 1, None),
     ((4, 1), "internlm2-20b", "float32", 1, None),
+    # (pod, data, model) meshes over the ranks of the 2 x 2 and 4 x 1 worlds
+    ((2, 1, 2), "smollm-360m", "float32", 1, None),
+    ((2, 1, 2), "internlm2-20b", "int8", 2, None),
+    ((2, 1, 2), "qwen3-moe-235b-a22b", "float32", 1, None),
+    ((2, 1, 2), "gemma3-12b", "float32", 1, "seq"),
+    ((2, 2, 1), "smollm-360m", "float32", 1, None),
 ]
 SHAPES = [(2, 2), (1, 2), (4, 1)]
+#: the world whose ranks build each pod mesh
+POD_HOSTS = {(2, 1, 2): (2, 2), (2, 2, 1): (4, 1)}
 #: the microbatched case clips at a quarter, so that clipping (and the
 #: global norm it reads) decides the update
 CLIP = {2: 0.25}
 ELASTIC_SOURCE = ((2, 2), "internlm2-20b", "int8", 2, None)
-ELASTIC_SHAPES = [(1, 4), (4, 1)]
-#: (mesh shape, tokens per data rank): G = 4 and G = 2 with the experts
-#: split, and one group across the data ranks when (T / G) * k < E
-MOE_CASES = [((4, 1), 16), ((2, 2), 16), ((2, 2), 1)]
+ELASTIC_SHAPES = [(1, 4), (4, 1), (2, 1, 2)]
+#: the same step on the pod mesh, saved there and restored without pods
+POD_ELASTIC_SOURCE = ((2, 1, 2), "internlm2-20b", "int8", 2, None)
+POD_ELASTIC_SHAPES = [(2, 2), (4, 1)]
+#: (mesh shape, tokens per row rank): G = 4 and G = 2 with the experts
+#: split, and one group across the row ranks when (T / G) * k < E; on the
+#: pod mesh G = 4 over (pod, data), and the one-group path
+MOE_CASES = [((4, 1), 16), ((2, 2), 16), ((2, 2), 1), ((2, 2, 1), 16), ((2, 2, 1), 1)]
 PREFILL_ARCHS = ["smollm-360m", "qwen3-moe-235b-a22b"]
+POD_PREFILL_SHAPE = (2, 1, 2)
 COMPRESS_ROUNDS = 30
 WORLD_DEADLINE_S = 120
 
@@ -259,37 +276,69 @@ def _moe_inputs(shape, per_rank: int):
         "ws_down": rng.normal(0, 0.3, (fs, d)).astype(np.float32),
     }
     p["router"][:, 0] += 1.5
-    x = rng.normal(0, 1, (per_rank * shape[0], d)).astype(np.float32)
+    x = rng.normal(0, 1, (per_rank * _row_size(shape), d)).astype(np.float32)
     x[:, :] += 0.5
     return p, x
 
 
 def _compress_grads() -> np.ndarray:
+    """One gradient per world rank of the 4 x 1 world."""
     return np.random.default_rng(1000).normal(size=(4, 64, 32)).astype(np.float32)
 
 
+#: the compressed all-reduce's meshes in the 4 x 1 world and the axis each
+#: reduces over: the four data ranks, and the pod pairs of 2 x 2 x 1
+#: (world ranks d and 2 + d of data rank d)
+COMPRESS_CASES = {(4, 1): "data", (2, 2, 1): "pod"}
+
+
+def _row_size(shape) -> int:
+    """Ranks along the row axes (``(pod, data)``, or ``data``) of a mesh."""
+    return int(np.prod(shape[:-1]))
+
+
+def _host(shape):
+    return POD_HOSTS.get(shape, shape)
+
+
+def _moe_host(shape):
+    """The MoE dispatch on a pod mesh runs in the 2 x 2 world, which so
+    builds both pod meshes: meshes of the same ranks and axis names must
+    not share groups."""
+    return (2, 2) if len(shape) == 3 else shape
+
+
 def _world_cases(shape, ref_dir: str) -> dict:
-    cases = {"train": [], "moe": [], "prefill": []}
+    """The cases of the ``shape`` world: its own and those of the pod mesh
+    its ranks build."""
+    cases = {"train": [], "moe": [], "prefill": [], "compress": [], "elastic": []}
     for case in TRAIN_CASES:
-        if case[0] != shape:
+        if _host(case[0]) != shape:
             continue
         _, arch, moment, n_micro, force = case
         cases["train"].append({
             "key": case, "cfg": _cfgs(arch)[0], "tree": _tree(arch), "batch": _batch(arch, n_micro),
             "moment": moment, "n_micro": n_micro, "force": force, "clip": CLIP.get(n_micro, 1.0)})
     for mshape, per in MOE_CASES:
-        if mshape == shape:
-            p, x = _moe_inputs(shape, per)
-            cases["moe"].append({"key": (shape, per), "m": MOE, "p": p, "x": x})
-    if shape == (2, 2):
-        for arch in PREFILL_ARCHS:
-            cases["prefill"].append({"key": arch, "cfg": _cfgs(arch)[0], "tree": _tree(arch),
+        if _moe_host(mshape) == shape:
+            p, x = _moe_inputs(mshape, per)
+            cases["moe"].append({"key": (mshape, per), "m": MOE, "p": p, "x": x})
+    for mshape, key in [((2, 2), a) for a in PREFILL_ARCHS] + [
+            (POD_PREFILL_SHAPE, (POD_PREFILL_SHAPE, a)) for a in PREFILL_ARCHS]:
+        if _host(mshape) == shape:
+            arch = key if mshape == (2, 2) else key[1]
+            cases["prefill"].append({"key": key, "shape": mshape, "cfg": _cfgs(arch)[0], "tree": _tree(arch),
                                      "tokens": _batch(arch, 1)["tokens"]})
-        _, arch, moment, _, _ = ELASTIC_SOURCE
-        cases["elastic"] = {"source": ELASTIC_SOURCE, "shapes": ELASTIC_SHAPES, "ref_dir": ref_dir,
-                            "cfg": _cfgs(arch)[0], "tree": _tree(arch), "moment": moment}
-    if shape == (4, 1):
-        cases["compress"] = {"grads": _compress_grads(), "rounds": COMPRESS_ROUNDS}
+    for source, shapes in ((ELASTIC_SOURCE, ELASTIC_SHAPES), (POD_ELASTIC_SOURCE, POD_ELASTIC_SHAPES)):
+        if _host(source[0]) == shape:
+            _, arch, moment, _, _ = source
+            cases["elastic"].append({
+                "source": source, "shapes": shapes, "ref_dir": ref_dir,
+                "cfg": _cfgs(arch)[0], "tree": _tree(arch), "moment": moment})
+    for mshape, axis in COMPRESS_CASES.items():
+        if _host(mshape) == shape:
+            cases["compress"].append({"shape": mshape, "axis": axis, "grads": _compress_grads(),
+                                      "rounds": COMPRESS_ROUNDS})
     return cases
 
 
@@ -346,8 +395,11 @@ class World:
 
 
 def _jplan(shape):
-    return jplans.MeshPlan(pod_axis=None, data_axis="data", model_axis="model",
-                           pod_size=1, data_size=shape[0], model_size=shape[1])
+    """The reference's plan of a ``(data, model)`` or ``(pod, data, model)``
+    mesh shape, built by hand."""
+    pod, data, model = shape if len(shape) == 3 else (1, *shape)
+    return jplans.MeshPlan(pod_axis="pod" if len(shape) == 3 else None, data_axis="data",
+                           model_axis="model", pod_size=pod, data_size=data, model_size=model)
 
 
 def _compile(fn, *args):
@@ -359,20 +411,23 @@ _REF: dict = {}
 
 
 def _ref_key(case) -> tuple:
-    """Only the MoE's groups read the plan's sizes, so a dense arch's step
-    is the same in every world."""
+    """Only the MoE's groups, ``G = pod * data`` of them, read the plan's
+    sizes, so a dense arch's step is the same in every world, and an MoE
+    arch's the same in the worlds of one ``G``: the 2 x 1 x 2 mesh's is
+    the 2 x 2 world's (the MoE dispatch and the prefill hold the reference
+    under a pod plan itself)."""
     shape, arch, moment, n_micro, _ = case
-    return arch, shape[0] if _cfgs(arch)[1].moe else None, moment, n_micro
+    return arch, _row_size(shape) if _cfgs(arch)[1].moe else None, moment, n_micro
 
 
 def _reference() -> dict:
     """Every reference result the checks read: the train step of each train
     case under its plan (loss, grad_norm, parameters and moments),
     ``moe_apply`` on each MoE case under its plan and on the first without
-    one, and the MoE arch's ``prefill_step`` on 2 x 2.  One jitted program
-    per arch, one for the MoE cases and one for the prefill (a program per
-    call would compile the int8 step's gradient again; one program for all
-    compiles slower than these)."""
+    one, and the MoE arch's ``prefill_step`` on 2 x 2 and on the pod mesh.
+    One jitted program per arch, one for the MoE cases and one for the
+    prefill (a program per call would compile the int8 step's gradient
+    again; one program for all compiles slower than these)."""
     if _REF:
         return _REF
     jobs = {}
@@ -393,9 +448,9 @@ def _reference() -> dict:
     jobs["moe", "plain"] = ("moe", functools.partial(jmoe.moe_apply, m=MOE, plan=None, drop_tokens=True),
                             jobs["moe", MOE_CASES[0]][2])
     arch = PREFILL_ARCHS[1]
-    jobs["prefill", arch] = ("prefill", functools.partial(jtf.prefill_step, cfg=_cfgs(arch)[1],
-                                                          plan=_jplan((2, 2))),
-                             (jax.tree.map(jnp.asarray, _tree(arch)), jnp.asarray(_batch(arch, 1)["tokens"])))
+    for shape, key in (((2, 2), ("prefill", arch)), (POD_PREFILL_SHAPE, ("prefill", POD_PREFILL_SHAPE, arch))):
+        jobs[key] = ("prefill", functools.partial(jtf.prefill_step, cfg=_cfgs(arch)[1], plan=_jplan(shape)),
+                     (jax.tree.map(jnp.asarray, _tree(arch)), jnp.asarray(_batch(arch, 1)["tokens"])))
     for group in dict.fromkeys(job[0] for job in jobs.values()):
         keys = [k for k, job in jobs.items() if job[0] == group]
         args = [jobs[k][2] for k in keys]
@@ -436,6 +491,17 @@ for i in range(int(sys.argv[3])):
     g_hat, err = reduce_fn(grads, err)
     out[f"g{i}"], out[f"e{i}"] = np.asarray(g_hat["w"]), np.asarray(err["w"])
 np.savez(sys.argv[2], **out)
+# over "pod" on 2 x 2 x 1: data rank d's pair, world ranks d and 2 + d
+pair = g[[0, 2]]
+reduce_fn = jax.jit(make_compressed_allreduce(jax.make_mesh((2,), ("pod",)), "pod")).lower(
+    {"w": jnp.asarray(pair)}, {"w": jnp.zeros_like(pair)}).compile({"xla_backend_optimization_level": 0})
+out = {}
+for d in range(2):
+    grads, err = {"w": jnp.asarray(g[[d, 2 + d]])}, {"w": jnp.zeros_like(pair)}
+    for i in range(int(sys.argv[3])):
+        g_hat, err = reduce_fn(grads, err)
+        out[f"g{d}_{i}"], out[f"e{d}_{i}"] = np.asarray(g_hat["w"]), np.asarray(err["w"])
+np.savez(sys.argv[4], **out)
 """
 
 
@@ -454,7 +520,8 @@ def run(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     compress = subprocess.Popen(
         [sys.executable, "-c", COMPRESS_DRIVER, str(root / "grads.npy"), str(root / "compress.npz"),
-         str(COMPRESS_ROUNDS)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+         str(COMPRESS_ROUNDS), str(root / "compress_pod.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     worlds = {s: World(s, root / f"{s[0]}x{s[1]}", _world_cases(s, ref_dir)) for s in SHAPES}
     yield {"worlds": worlds, "ref_dir": ref_dir, "compress": compress, "root": root}
     for w in worlds.values():
@@ -490,18 +557,36 @@ def _assert_q8(got, want, what: str) -> None:
         assert np.all(np.abs(dec(got) - dec(want)) <= step + 1e-12), what + path
 
 
+def _sizes(shape) -> dict:
+    """Ranks along each axis of a ``(data, model)`` or ``(pod, data,
+    model)`` mesh shape."""
+    return dict(zip(("pod", "data", "model")[3 - len(shape):], shape))
+
+
+def _plan(shape, row: int = 0, col: int = 0) -> MeshPlan:
+    """The port's plan of a mesh shape at the coordinates ``(row, col)``,
+    built by hand (no process groups)."""
+    s = _sizes(shape)
+    return MeshPlan("pod" if "pod" in s else None, "data", "model", s.get("pod", 1), s["data"], s["model"],
+                    row_rank=row, model_rank=col)
+
+
+def _name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
 def _assemble(ranks: list[dict], case, key: str = "local") -> dict:
     """The whole parameter tree (reference layout, numpy) from every rank's
     blocks (``local``, or ``local_m`` / ``local_v`` of f32 moments), each
     written at its place."""
     specs = ranks[0]["train"][case]["specs"]
-    sizes = {"data": case[0][0], "model": case[0][1]}
+    sizes = _sizes(case[0])
     whole = {}
     for name, spec in specs.items():
         first = ranks[0]["train"][case][key][name]
         out = np.zeros([n * (sizes[a] if a else 1) for n, a in zip(first.shape, spec)], np.float32)
         for r in ranks:
-            pos = dict(zip(("data", "model"), r["coords"]))
+            pos = r["train"][case]["pos"]
             idx = tuple(slice(pos[a] * n, (pos[a] + 1) * n) if a else slice(None)
                         for n, a in zip(first.shape, spec))
             out[idx] = r["train"][case][key][name].numpy()
@@ -509,13 +594,13 @@ def _assemble(ranks: list[dict], case, key: str = "local") -> dict:
     return weights.reference_tree(ttf.Transformer(_cfgs(case[1])[0], device="meta"), whole)
 
 
-@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1]}-{c[2]}-m{c[3]}"
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: f"{_name(c[0])}-{c[1]}-{c[2]}-m{c[3]}"
                          + (f"-{c[4]}" if c[4] else ""))
 def test_sharded_train_step_matches_the_reference(run, case):
     want = _ref_step(case)
-    ranks = run["worlds"][case[0]].results()
+    ranks = run["worlds"][_host(case[0])].results()
     got = ranks[0]["train"][case]
-    expect_mode = case[4] or ("seq" if case[1] == "smollm-360m" and case[0][1] == 2 else "head")
+    expect_mode = case[4] or ("seq" if case[1] == "smollm-360m" and case[0][-1] == 2 else "head")
     assert got["mode"] == expect_mode
     for r in ranks:  # every rank reports the global loss and norm
         assert r["train"][case]["loss"] == got["loss"]
@@ -544,11 +629,13 @@ def test_sharded_train_step_matches_the_reference(run, case):
 
 
 #: the 2 x 2 world's train cases without a forced mode, whose step the dry
-#: run counts on a plan without process groups
-SHAPE_ONLY_CASES = [c for c in TRAIN_CASES if c[0] == (2, 2) and c[4] is None]
+#: run counts on a plan without process groups, and one of each pod mesh
+SHAPE_ONLY_CASES = [c for c in TRAIN_CASES if c[0] == (2, 2) and c[4] is None] + [
+    ((2, 1, 2), "smollm-360m", "float32", 1, None), ((2, 2, 1), "smollm-360m", "float32", 1, None)]
 
 
-@pytest.mark.parametrize("case", SHAPE_ONLY_CASES, ids=lambda c: f"{c[1]}-{c[2]}-m{c[3]}")
+@pytest.mark.parametrize("case", SHAPE_ONLY_CASES, ids=lambda c: (f"{_name(c[0])}-" if len(c[0]) == 3 else "")
+                         + f"{c[1]}-{c[2]}-m{c[3]}")
 def test_shape_only_plan_sends_what_the_world_sent(run, case):
     """The sharded step on ``meta`` tensors under a plan of the world's
     sizes and each rank's coordinates, with no process group (the dry
@@ -557,44 +644,44 @@ def test_shape_only_plan_sends_what_the_world_sent(run, case):
     from repro_torch.shard import plans
     from repro_torch.train.trainer import make_train_step
 
-    (data, model), arch, moment, n_micro, _ = case
+    shape, arch, moment, n_micro, _ = case
     cfg, _ = _cfgs(arch)
     ocfg = topt.OptimizerConfig(moment_dtype=moment, grad_clip=CLIP.get(n_micro, 1.0))
     batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
              for k, v in _batch(arch, n_micro).items()}
-    for r in run["worlds"][(data, model)].results():
-        row, col = r["coords"]
-        plan = MeshPlan(None, "data", "model", 1, data, model, row_rank=row, model_rank=col)
+    for r in run["worlds"][_host(shape)].results():
+        plan = _plan(shape, *r["train"][case]["coords"])
         meta = weights.shard_model(ttf.Transformer(cfg, device="meta"), plan)
         state = topt.init_opt_state(meta, ocfg)
         step = make_train_step(cfg, ocfg, n_micro, plan)
         plans.reset_exchanges()
         step(meta, state, batch)
         got = r["train"][case]
-        assert plans.exchanged == got["exchanged"], r["coords"]
-        assert plans.exchange_calls == got["exchange_calls"], r["coords"]
+        assert plans.exchanged == got["exchanged"], got["coords"]
+        assert plans.exchange_calls == got["exchange_calls"], got["coords"]
     plans.reset_exchanges()
 
 
-def _block_key(spec, coords, shape) -> tuple:
-    """Which block of a leaf split by ``spec`` the rank at ``coords`` holds."""
-    pos = {"data": coords[0], "model": coords[1]}
+def _block_key(spec, pos: dict) -> tuple:
+    """Which block of a leaf split by ``spec`` the rank at ``pos`` (its
+    coordinate on each mesh axis) holds."""
     return tuple(pos[a] if a is not None else 0 for a in spec)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", SHAPES + list(POD_HOSTS), ids=_name)
 def test_replicas_are_bit_identical_across_ranks(run, shape):
     """After a step, every rank holding the same block of a parameter (or
-    of its moments) holds the same bits, and the blocks differ where
-    the spec splits."""
-    ranks = run["worlds"][shape].results()
+    of its moments) holds the same bits, the ranks of other pods
+    included, and the blocks differ where the spec splits."""
+    ranks = run["worlds"][_host(shape)].results()
+    sizes = _sizes(shape)
     for case in [c for c in TRAIN_CASES if c[0] == shape]:
         specs = ranks[0]["train"][case]["specs"]
         for name, spec in specs.items():
             held = {}
             for r in ranks:
                 res = r["train"][case]
-                key = _block_key(spec, r["coords"], shape)
+                key = _block_key(spec, res["pos"])
                 leaves = [res["local"][name]]
                 for moment in (res["local_m"][name], res["local_v"][name]):
                     leaves += [moment["q"], moment["scale"]] if case[2] == "int8" else [moment]
@@ -603,8 +690,7 @@ def test_replicas_are_bit_identical_across_ranks(run, shape):
                         assert torch.equal(a, b), (case, name, key)
                 else:
                     held[key] = leaves
-            assert len(held) == int(np.prod([shape[0] if a == "data" else shape[1]
-                                             for a in spec if a is not None])), (case, name)
+            assert len(held) == int(np.prod([sizes[a] for a in spec if a is not None])), (case, name)
 
 
 # ---------------------------------------------------------------------- #
@@ -612,13 +698,13 @@ def test_replicas_are_bit_identical_across_ranks(run, shape):
 # ---------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("moe_case", MOE_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-T{c[1]}")
+@pytest.mark.parametrize("moe_case", MOE_CASES, ids=lambda c: f"{_name(c[0])}-T{c[1]}")
 def test_grouped_moe_dispatch_matches_the_reference(run, moe_case):
     shape, per = moe_case
     y, aux = _reference()["moe", moe_case]
     if moe_case == MOE_CASES[0]:  # the groups decide which tokens drop
         assert not np.allclose(y, _reference()["moe", "plain"][0], rtol=1e-3)
-    for r in run["worlds"][shape].results():
+    for r in run["worlds"][_moe_host(shape)].results():
         got = r["moe"][moe_case]
         np.testing.assert_allclose(got["y"].numpy(), y, rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(float(got["aux"]), aux, rtol=1e-5)
@@ -639,6 +725,19 @@ def test_prefill_step_with_a_plan(run, arch):
                                        atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_prefill_step_on_a_pod_mesh(run, arch):
+    """On 2 x 1 x 2, the logits gathered over ``(pod, data)``: smollm-360m
+    ("seq" mode) equals the port's unsharded prefill; the MoE arch the
+    reference's prefill under the pod plan."""
+    key = (POD_PREFILL_SHAPE, arch)
+    for r in run["worlds"][_host(POD_PREFILL_SHAPE)].results():
+        got = r["prefill"][key]
+        assert got["logits"].shape == (B, _cfgs(arch)[0].vocab)
+        want = got["plain"].numpy() if arch == "smollm-360m" else _reference()["prefill", *key]
+        np.testing.assert_allclose(got["logits"].numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------- #
 # (e) The compressed all-reduce, (f) the elastic checkpoint
 # ---------------------------------------------------------------------- #
@@ -652,7 +751,7 @@ def test_compressed_allreduce_matches_the_reference(run):
     g = _compress_grads()
     exact, bound = g.mean(axis=0), np.abs(g).max() / 127
     for r in ranks:
-        rounds = r["compress"]
+        rounds = r["compress"][(4, 1)]
         assert len(rounds) == COMPRESS_ROUNDS
         for i, (g_hat, err) in enumerate(rounds):
             assert np.array_equal(g_hat.numpy(), want[f"g{i}"]), i
@@ -660,6 +759,27 @@ def test_compressed_allreduce_matches_the_reference(run):
         assert np.abs(rounds[0][0].numpy() - exact).max() <= bound + 1e-6
         mean = np.mean([gh.numpy() for gh, _ in rounds], axis=0)
         np.testing.assert_allclose(mean, exact, atol=bound / 10)
+
+
+def test_compressed_allreduce_over_pods_matches_the_reference(run):
+    """``make_compressed_allreduce(mesh, "pod")`` on 2 x 2 x 1: each pod
+    pair (world ranks d and 2 + d) reduces its two gradients, per round
+    bit-equal to the reference's over a ``pod`` mesh of two devices and
+    within its one-shot bound of the pair's mean."""
+    out, _ = run["compress"].communicate(timeout=WORLD_DEADLINE_S)
+    assert run["compress"].returncode == 0, out.decode()
+    want = np.load(run["root"] / "compress_pod.npz")
+    g = _compress_grads()
+    for rank, r in enumerate(run["worlds"][(4, 1)].results()):
+        rounds = r["compress"][(2, 2, 1)]
+        pod, d = divmod(rank, 2)
+        pair = g[[d, 2 + d]]
+        assert len(rounds) == COMPRESS_ROUNDS
+        for i, (g_hat, err) in enumerate(rounds):
+            assert np.array_equal(g_hat.numpy(), want[f"g{d}_{i}"]), (rank, i)
+            assert np.array_equal(err.numpy(), want[f"e{d}_{i}"][pod]), (rank, i)
+        bound = np.abs(pair).max() / 127
+        assert np.abs(rounds[0][0].numpy() - pair.mean(axis=0)).max() <= bound + 1e-6
 
 
 def _blocks_equal(local, whole, specs, plan: MeshPlan, what) -> None:
@@ -673,31 +793,41 @@ def _blocks_equal(local, whole, specs, plan: MeshPlan, what) -> None:
     assert np.array_equal(local.detach().numpy(), local_shard(np.asarray(whole), specs, plan)), what
 
 
-def test_elastic_checkpoint_crosses_meshes_and_packages(run):
-    """Saved under 2 x 2 (int8 moments after a step), restored bit for bit
-    under 1 x 4 and 4 x 1; the reference's restore reads the port's
-    checkpoint, and the port restores the reference's onto both meshes."""
-    ranks = run["worlds"][(2, 2)].results()
-    trained = ranks[0]["train"][ELASTIC_SOURCE]
+def _check_elastic(run, source, shapes) -> None:
+    """The checkpoint of ``source``'s trained step (int8 moments), saved on
+    its mesh, restored bit for bit on each of ``shapes``; the reference's
+    restore reads it, and the port restores the reference's onto each of
+    ``shapes``."""
+    ranks = run["worlds"][_host(source[0])].results()
+    trained = ranks[0]["train"][source]
     saved = {"params": trained["params"], "opt": {"step": np.int32(1), "m": trained["m"], "v": trained["v"]}}
-    want = _ref_step(ELASTIC_SOURCE)
+    want = _ref_step(source)
     ref = {"params": want["params"], "opt": {"step": np.int32(want["step"]), "m": want["m"], "v": want["v"]}}
-    for shape in ELASTIC_SHAPES:
+    for shape in shapes:
         for name, whole in (("port", saved), ("reference", ref)):
             for r in ranks:
-                got = r["elastic"][name, shape]
-                plan = MeshPlan(pod_axis=None, data_axis="data", model_axis="model", pod_size=1,
-                                data_size=shape[0], model_size=shape[1], row_rank=got["coords"][0],
-                                model_rank=got["coords"][1])
-                _blocks_equal(got["tree"], whole, got["specs"], plan, f"{name} {shape}")
-    arch = ELASTIC_SOURCE[1]
+                got = r["elastic"][source][name, shape]
+                _blocks_equal(got["tree"], whole, got["specs"], _plan(shape, *got["coords"]), f"{name} {shape}")
+    arch = source[1]
     template = jax.tree.map(jnp.asarray, {"params": _tree(arch), "opt": jopt.init_opt_state(
         jax.tree.map(jnp.asarray, _tree(arch)), jopt.OptimizerConfig(moment_dtype="int8"))})
-    tree, meta = jckpt.restore(ranks[0]["elastic"]["path"], template)
+    tree, meta = jckpt.restore(ranks[0]["elastic"][source]["path"], template)
     assert meta["step"] == 1
     a, b = _leaves(jax.tree.map(np.asarray, tree)), _leaves(saved)
     assert a.keys() == b.keys()
     assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_elastic_checkpoint_crosses_meshes_and_packages(run):
+    """Saved under 2 x 2, restored under 1 x 4, 4 x 1 and the 2 x 1 x 2
+    pod mesh."""
+    _check_elastic(run, ELASTIC_SOURCE, ELASTIC_SHAPES)
+
+
+def test_elastic_checkpoint_from_a_pod_mesh(run):
+    """Saved under 2 x 1 x 2 (every rank's blocks gathered within its pod,
+    world rank 0 writes), restored under 2 x 2 and 4 x 1."""
+    _check_elastic(run, POD_ELASTIC_SOURCE, POD_ELASTIC_SHAPES)
 
 
 @pytest.mark.parametrize("window", [0, 16], ids=["global", "local"])

@@ -3,10 +3,11 @@
 Imports only torch, numpy and the port (``repro_torch``): the parent test
 builds the inputs, runs the reference, and compares.  :func:`run` joins
 the world through a ``FileStore``, builds its ``(data, model)`` device
-mesh, runs every case of its input file (sharded train steps, the grouped
-MoE dispatch, ``prefill_step``, the compressed all-reduce, the elastic
-checkpoint) and saves this rank's results, or the traceback that stopped
-it, for the parent.
+mesh and the ``(pod, data, model)`` meshes its input file names over the
+same ranks, runs every case of the file on the mesh the case names
+(sharded train steps, the grouped MoE dispatch, ``prefill_step``, the
+compressed all-reduce, the elastic checkpoint) and saves this rank's
+results, or the traceback that stopped it, for the parent.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer as tf
@@ -33,7 +36,21 @@ COLLECTIVE_TIMEOUT_S = 60
 
 
 def _mesh(shape):
+    """A ``(data, model)`` mesh, or a ``(pod, data, model)`` one."""
+    if len(shape) == 3:
+        return init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data", "model"))
     return make_test_mesh(*shape, device="cpu")
+
+
+class _Plans(dict):
+    """The plan of each mesh shape, its mesh built at the first use: every
+    rank asks for the same shapes in the same order, so the groups are
+    made collectively."""
+
+    def __missing__(self, shape):
+        mesh = _mesh(shape)
+        self[shape] = MeshPlan.from_mesh(mesh)
+        return self[shape]
 
 
 def _train(case: dict, plan: MeshPlan) -> tuple[dict, object, dict]:
@@ -53,6 +70,8 @@ def _train(case: dict, plan: MeshPlan) -> tuple[dict, object, dict]:
         sent = {"exchanged": dict(exchanged), "exchange_calls": dict(exchange_calls)}
         out = {
             **sent,
+            "coords": (plan.row_rank, plan.model_rank),
+            "pos": {a: plan.axis_rank(a) for a in plan.axes},
             "mode": plan.attn_mode(cfg.n_heads, cfg.hd, False),
             "specs": named_specs(cfg, plan),
             **{k: float(v) for k, v in metrics.items()},
@@ -69,8 +88,8 @@ def _train(case: dict, plan: MeshPlan) -> tuple[dict, object, dict]:
 
 
 def _moe(case: dict, plan: MeshPlan) -> dict:
-    """``moe_apply`` with the plan on this data rank's tokens; ``y``
-    gathered over the data ranks."""
+    """``moe_apply`` with the plan on this row rank's tokens; ``y``
+    gathered over the row ranks."""
     m = case["m"]
     x = torch.from_numpy(case["x"])
     specs = moe_specs(x.shape[1], m, plan)
@@ -78,7 +97,7 @@ def _moe(case: dict, plan: MeshPlan) -> dict:
     per = x.shape[0] // plan.row_size
     with torch.no_grad():
         y, aux = moe_apply(p, x[plan.row_rank * per:(plan.row_rank + 1) * per], m, True, plan)
-    return {"y": C.all_gather(y, 0, plan, ("data",), "test"), "aux": aux}
+    return {"y": C.all_gather(y, 0, plan, plan.row_axes, "test"), "aux": aux}
 
 
 def _prefill(case: dict, plan: MeshPlan) -> dict:
@@ -89,11 +108,12 @@ def _prefill(case: dict, plan: MeshPlan) -> dict:
             "plain": tf.prefill_step(whole, tokens, cfg)}
 
 
-def _compress(case: dict, mesh, plan: MeshPlan) -> list:
-    """``rounds`` reductions of this data rank's gradient with error
-    feedback: per round the mean and this rank's carry."""
-    reduce = make_compressed_allreduce(mesh, "data")
-    g = {"w": torch.from_numpy(case["grads"][plan.row_rank])}
+def _compress(case: dict, mesh) -> list:
+    """``rounds`` reductions over the case's ``axis`` of this rank's
+    gradient (its world rank's) with error feedback: per round the mean
+    and this rank's carry."""
+    reduce = make_compressed_allreduce(mesh, case["axis"])
+    g = {"w": torch.from_numpy(case["grads"][dist.get_rank()])}
     err = {"w": torch.zeros_like(g["w"])}
     out = []
     for _ in range(case["rounds"]):
@@ -102,15 +122,16 @@ def _compress(case: dict, mesh, plan: MeshPlan) -> list:
     return out
 
 
-def _elastic(case: dict, root: str, model, state) -> dict:
-    """Save the trained model under this world's plan, then restore it, and
-    the reference's checkpoint, onto each other mesh of the same ranks:
-    this rank's restored blocks, their specs and its coordinates there."""
-    path = ckpt.save(os.path.join(root, "port_ckpt"), 1, ckpt.training_tree(model, state),
+def _elastic(case: dict, root: str, plans: _Plans, model, state) -> dict:
+    """Save the trained model under its plan, then restore it, and the
+    reference's checkpoint, onto each other mesh of the same ranks: this
+    rank's restored blocks, their specs and its coordinates there."""
+    saved_on = "x".join(map(str, case["source"][0]))
+    path = ckpt.save(os.path.join(root, f"port_ckpt_{saved_on}"), 1, ckpt.training_tree(model, state),
                      plan=model.plan, specs=training_specs(model, state))
     out = {"path": path}
     for shape in case["shapes"]:
-        plan = MeshPlan.from_mesh(_mesh(shape))
+        plan = plans[shape]
         for name, src in (("port", path), ("reference", case["ref_dir"])):
             fresh = params_from_reference(case["tree"], case["cfg"], device="cpu", plan=plan)
             fstate = opt.init_opt_state(fresh, opt.OptimizerConfig(moment_dtype=case["moment"]))
@@ -130,24 +151,25 @@ def run(rank: int, world: int, shape: tuple, store: str, cases_path: str, out_pa
         dist.init_process_group(
             "gloo", store=dist.FileStore(store, world), rank=rank,
             world_size=world, timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-        mesh = _mesh(shape)
-        plan = MeshPlan.from_mesh(mesh)
+        plans = _Plans()
+        plan = plans[tuple(shape)]
         cases = torch.load(cases_path, weights_only=False)
-        results = {"coords": (plan.row_rank, plan.model_rank), "train": {}, "moe": {}, "prefill": {}}
+        results = {"coords": (plan.row_rank, plan.model_rank), "train": {}, "moe": {}, "prefill": {},
+                   "compress": {}, "elastic": {}}
         trained = {}
         for case in cases["train"]:
-            res, model, state = _train(case, plan)
+            res, model, state = _train(case, plans[case["key"][0]])
             results["train"][case["key"]] = res
             trained[case["key"]] = (model, state)
         for case in cases["moe"]:
-            results["moe"][case["key"]] = _moe(case, plan)
+            results["moe"][case["key"]] = _moe(case, plans[case["key"][0]])
         for case in cases["prefill"]:
-            results["prefill"][case["key"]] = _prefill(case, plan)
-        if "compress" in cases:
-            results["compress"] = _compress(cases["compress"], mesh, plan)
-        if "elastic" in cases:
-            case = cases["elastic"]
-            results["elastic"] = _elastic(case, os.path.dirname(cases_path), *trained[case["source"]])
+            results["prefill"][case["key"]] = _prefill(case, plans[case["shape"]])
+        for case in cases["compress"]:
+            results["compress"][case["shape"]] = _compress(case, plans[case["shape"]].mesh)
+        for case in cases["elastic"]:
+            results["elastic"][case["source"]] = _elastic(
+                case, os.path.dirname(cases_path), plans, *trained[case["source"]])
         torch.save(results, out_path % rank)
     except BaseException:
         torch.save({"error": traceback.format_exc()}, out_path % rank)
